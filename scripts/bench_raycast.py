@@ -1,112 +1,111 @@
-"""TPU timing: Pallas raycast kernels at 1080p — whole-table kernel on
-the atrium, and the STREAMED chunk-culled kernel (raycast_stream) across
-a triangle-count sweep (subdivide_scene stress: 1.1k -> 287k tris,
-Sponza-class; Model.h:43), with a bandwidth/compute roofline line per
-run (VERDICT r2 missing #3 / weak #9)."""
+"""Primary-visibility timing at the bench operating point: the binned
+Triton raycast (binning + kernel) vs the XLA brute force, at 1080p on the
+4-way-subdivided atrium (287,232 triangles), plus a sweep of the kernel's
+block shape.
 
+Both timings are warm and end in jax.block_until_ready.  The brute force
+is gbuffer.pinhole_hits, over ray chunks small enough that its
+(chunk x triangles) f32 arrays fit the card.
+
+Usage (on a GPU):  python scripts/bench_raycast.py [--sweep] [--reps N]
+Prints one JSON line on stdout; diagnostics on stderr.
+"""
+
+import argparse
+import json
+import os
 import sys
 import time
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
-from vct_tpu.core import camera as cameralib
-from vct_tpu.ops import raycast_pallas as RP
-from vct_tpu.render import gbuffer as GB
-from vct_tpu.scene.atrium import atrium
-from vct_tpu.scene.mesh import subdivide_scene
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import bench  # noqa: E402
+from vct_tpu.core import camera as cameralib  # noqa: E402
+from vct_tpu.ops import binrast_pallas as BR  # noqa: E402
+from vct_tpu.render import fast as F  # noqa: E402
+from vct_tpu.render import gbuffer as GB  # noqa: E402
+from vct_tpu.scene import atrium  # noqa: E402
+from vct_tpu.scene.mesh import subdivide_scene  # noqa: E402
+from vct_tpu.utils.profiling import enable_compile_cache  # noqa: E402
 
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def sync(x):
-    return float(jnp.sum(jnp.ravel(x)[:8]))
+def timed(fn, reps):
+    """(first-call seconds incl. compile, median warm seconds)."""
+    t0 = time.perf_counter()
+    jax.block_until_ready(fn())
+    first = time.perf_counter() - t0
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn())
+        ts.append(time.perf_counter() - t0)
+    return first, float(np.median(ts))
+
+
+def operating_point(width=1920, height=1080, subdiv=4):
+    ds = GB.DeviceScene.from_scene(subdivide_scene(atrium(), subdiv))
+    origins, dirs = cameralib.primary_rays(cameralib.Camera(**bench.CAMERA),
+                                           width, height)
+    return ds, origins, dirs
 
 
 def main():
-    scene = atrium()
-    ds = GB.DeviceScene.from_scene(scene)
-    cam = cameralib.Camera(position=(48.0, -10.0, 0.0), yaw=180.0)
-    w, h = 1920, 1080
-    origins, dirs = cameralib.primary_rays(cam, w, h)
-    o0 = jnp.asarray(origins.reshape(-1, 3)[0])
-    # production ray layout: 16x16 image tiles (render/fast.py) — the
-    # stream kernel's per-tile cone culling and front-to-back early stop
-    # depend on tile coherence
-    from vct_tpu.render import fast as F
-    hp = -(-h // F.TSY) * F.TSY
-    wp = -(-w // F.TSX) * F.TSX
-    dp = jnp.pad(jnp.asarray(dirs), ((0, hp - h), (0, wp - w), (0, 0)),
-                 mode="edge")
-    d = jax.jit(lambda x: F._tile_order(x, hp, wp))(dp)
-    log(f"rays: {d.shape[0]} (tile-ordered), tris: {ds.v0.shape[0]}")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--sweep", action="store_true",
+                    help="time RAYS x SLICE x num_warps block shapes")
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--chunk", type=int, default=1024,
+                    help="brute-force rays per chunk")
+    args = ap.parse_args()
+    enable_compile_cache()
+    dev = jax.devices()[0]
+    log(f"device: {dev.device_kind} ({dev.platform}) x{len(jax.devices())}")
+    ds, origins, dirs = operating_point()
+    ntri = int(ds.v0.shape[0])
+    log(f"{ntri} triangles, {dirs.shape[1]}x{dirs.shape[0]} rays")
 
-    @jax.jit
-    def run(ds_, o, dd):
-        isect, attrs, _ = RP.pack_tables(ds_, o)
-        return RP.raycast_gbuf24(dd, o, isect, attrs)
+    def binned():
+        return F.raycast_image(ds, origins, dirs)
 
-    t0 = time.time()
-    g = run(ds, o0, d)
-    sync(g)
-    log(f"compile+run: {time.time()-t0:.1f}s")
-    t0 = time.time()
-    reps = 10
-    for _ in range(reps):
-        g = run(ds, o0, d)
-        sync(g)
-    dt = (time.time() - t0) / reps
-    log(f"pallas raycast: {dt*1e3:.1f} ms/frame ({d.shape[0]/dt/1e6:.0f} Mrays/s)")
+    res = {"device_kind": dev.device_kind, "triangles": ntri}
+    first, warm = timed(binned, args.reps)
+    res.update(binned_first_s=first, binned_ms=warm * 1e3,
+               block=[BR.RAYS, BR.SLICE, BR.NUM_WARPS, BR.NUM_STAGES])
+    log(f"binned (bin + kernel): {warm * 1e3:.3f} ms warm, "
+        f"{first:.1f} s first call")
 
-    # sanity vs XLA on a slice
-    sl = slice(0, 4096)
-    pc = GB.pinhole_constants(ds, o0)
-    ref = GB.raycast_chunk_pinhole(ds, pc, o0, d[sl])
-    out = RP.gbuf24_to_gbuffer(g[sl])
-    hit = np.asarray(ref.hit)
-    agree = (np.asarray(out.hit) == hit).mean()
-    log(f"hit agreement vs XLA: {agree:.4f}")
-    terr = np.abs(np.asarray(out.t)[hit] - np.asarray(ref.t)[hit]).max()
-    log(f"max |t| err on hits: {terr:.2e}")
+    if args.sweep:
+        sweep = []
+        for rays, sl, warps in ((32, 32, 2), (64, 32, 4), (128, 32, 4),
+                                 (64, 64, 4), (128, 64, 8), (64, 16, 2),
+                                 (128, 32, 8)):
+            BR.RAYS, BR.SLICE, BR.NUM_WARPS = rays, sl, warps
+            jax.clear_caches()
+            try:
+                _, w = timed(binned, args.reps)
+                sweep.append([rays, sl, warps, w * 1e3])
+                log(f"  RAYS={rays} SLICE={sl} warps={warps}: "
+                    f"{w * 1e3:.3f} ms")
+            except Exception as e:   # a shape the compiler refuses
+                log(f"  RAYS={rays} SLICE={sl} warps={warps}: "
+                    f"{type(e).__name__}: {str(e)[:200]}")
+        res["sweep_ms"] = sweep
 
-    # ---- streamed kernel sweep: 1.1k -> 287k triangles ----
-    from vct_tpu.render import renderer as R
-    from vct_tpu.config import preset
-    cfg = preset("sponza256")
-    for lvl in (0, 2, 4):
-        sc = subdivide_scene(scene, lvl) if lvl else scene
-        dsl, mats, _ = R.prepare_scene(cfg, sc)
-        isect, attrsT, spheres, t = RP.pack_tables_stream(
-            dsl, o0, mats.albedo, mats.specular, mats.shininess)
-        nrt = d.shape[0] // RP.TILE
-        # tables must be jit ARGUMENTS: closure-captured device arrays
-        # become embedded constants and cost ~5x in dispatch (measured
-        # 350 vs 69 ms — the gbuffer.DeviceScene docstring caveat)
-        sel = jax.jit(lambda dd, sp: RP.select_chunks(
-            dd.reshape(nrt, RP.TILE, 3), sp))
-        lists, counts = sel(d, spheres)
-        cnp = np.asarray(counts)
-        rs = jax.jit(lambda dd, ii, aa, ll, cc, ss: RP.raycast_stream(
-            dd, o0, ii, aa, ll, cc, ss))
-        sync(rs(d, isect, attrsT, lists, counts, spheres))
-        t0 = time.time()
-        for _ in range(5):
-            r = rs(d, isect, attrsT, lists, counts, spheres)
-        sync(r)
-        dt = (time.time() - t0) / 5
-        # roofline accounting: DMA'd chunk bytes + VPU candidate ops
-        chunk_bytes = (16 + 48) * 4 * RP.CHUNK
-        total_chunks = float(cnp.sum())
-        gb = total_chunks * chunk_bytes / 1e9
-        cand = total_chunks * RP.TILE * RP.CHUNK
-        log(f"stream tris={t}: {dt*1e3:.1f} ms "
-            f"({d.shape[0]/dt/1e6:.1f} Mrays/s), chunks/tile "
-            f"mean={cnp.mean():.1f}/{isect.shape[1]//RP.CHUNK}, "
-            f"DMA {gb:.2f} GB -> {gb/dt:.0f} GB/s of 819 peak, "
-            f"{cand/dt/1e12:.2f} T ray-tri candidates/s")
+    bf = jax.jit(GB.pinhole_hits, static_argnames=("chunk_size",))
+    first, warm = timed(
+        lambda: bf(ds, origins.reshape(-1, 3)[0], dirs.reshape(-1, 3),
+                   chunk_size=args.chunk), max(1, args.reps // 2))
+    res.update(brute_first_s=first, brute_ms=warm * 1e3,
+               brute_chunk=args.chunk)
+    log(f"brute force (chunk {args.chunk}): {warm * 1e3:.3f} ms warm")
+    print(json.dumps(res))
 
 
 if __name__ == "__main__":

@@ -1,26 +1,24 @@
-"""Field-mode fidelity at the OPERATING POINT (VERDICT r2 missing #4):
-256^3 grid, field_dim 128 (the sponza256 default) and 256 (full grid),
-vs the exact per-pixel cone march (the fs:82-107 oracle) on a sampled
-G-buffer pixel subset — plus a mirror-material specular comparison,
-the r4 percone specular KERNEL (ops/specmarch_pallas) against the same
-oracle, and END-TO-END IMAGE errors (fast path vs the percone-oracle
-renderer at the same pixels — the number that matters: occlusion and
-albedo modulate the raw field error).
+"""Field-mode fidelity at the OPERATING POINT: 256^3 grid, field_dim 128
+(the sponza256 default) and 256 (full grid), vs the exact per-pixel cone
+march (the fs:82-107 oracle) on a sampled G-buffer pixel subset — plus a
+mirror-material specular comparison and END-TO-END IMAGE errors (the
+camera pass vs the percone-oracle renderer at the same pixels — the
+number that matters: occlusion and albedo modulate the raw field error).
 
 The full-grid diffuse field at 256^3 x 26 basis x vec4 would be 7 GB, so
 the field-256 evaluation accumulates the per-pixel weighted taps
 basis-group by basis-group (the tap is linear over basis fields) without
 ever materializing the full field.
 
-Writes FIDELITY_r{N}.json (VCT_FIDELITY_OUT) with relative RMS errors:
-if err(field128) ~= err(field256), the default field_dim=128
-(shading.field_dim) is justified — the error then comes from the basis
-interpolation, not the field resolution.
+Writes relative RMS errors as JSON to VCT_FIDELITY_OUT (default
+fidelity.json): if err(field128) ~= err(field256), the default
+field_dim=128 (shading.field_dim) is justified — the error then comes
+from the basis interpolation, not the field resolution.
 
-Run on TPU: PYTHONPATH=/root/repo:$PYTHONPATH python scripts/fidelity_field.py
+Run on a GPU:  python scripts/fidelity_field.py
+(tests/test_fidelity.py calls main() in-process with a smaller subset.)
 """
 
-import dataclasses
 import json
 import os
 import sys
@@ -30,13 +28,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vct_tpu.config import preset
-from vct_tpu.core import camera as cameralib
-from vct_tpu.core import dense as D
-from vct_tpu.core import march as M
-from vct_tpu.render import renderer as R
-from vct_tpu.render import shading
-from vct_tpu.scene.atrium import atrium
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from vct_tpu.config import preset  # noqa: E402
+from vct_tpu.core import camera as cameralib  # noqa: E402
+from vct_tpu.core import dense as D  # noqa: E402
+from vct_tpu.render import renderer as R  # noqa: E402
+from vct_tpu.render import shading  # noqa: E402
+from vct_tpu.scene.atrium import atrium  # noqa: E402
 
 
 def log(*a):
@@ -80,7 +79,12 @@ def field_taps_grouped(cfg, mips, sched, pos, nrm, weights, field_dim,
     return out
 
 
-def main():
+def main(out_path=None, stage=None, dfs=None, nsub=None):
+    """Measure; returns the result dict (also written to out_path).
+    Defaults come from VCT_FIDELITY_{OUT,STAGE,DF,N}."""
+    from vct_tpu.render import fast as F
+    from vct_tpu.render.gbuffer import hits_to_gbuffer, pinhole_constants
+
     cfg = preset("sponza256")
     scene = atrium()
     camera = cameralib.Camera(position=(48.0, -10.0, 0.0), yaw=180.0)
@@ -93,19 +97,19 @@ def main():
     # G-buffer pixel subset
     w, h = 480, 272
     origins, dirs = cameralib.primary_rays(camera, w, h)
-    from vct_tpu.ops import raycast_pallas as RP
     origin = origins.reshape(-1, 3)[0]
-    isect, attrs, _ = RP.pack_tables(ds, origin, mats.albedo, mats.specular)
-    g = np.asarray(RP.raycast_gbuf24(dirs.reshape(-1, 3), origin, isect,
-                                     attrs))
-    hits = np.nonzero(g[:, 19] > 0.5)[0]
+    t, tri = F.raycast_image(ds, origins, dirs)
+    g = hits_to_gbuffer(ds, pinhole_constants(ds, origin), origin,
+                        dirs.reshape(-1, 3), t.reshape(-1), tri.reshape(-1))
+    hits = np.nonzero(np.asarray(g.hit))[0]
     rng = np.random.RandomState(0)
-    nsub = int(os.environ.get("VCT_FIDELITY_N", "2048"))
+    if nsub is None:
+        nsub = int(os.environ.get("VCT_FIDELITY_N", "2048"))
     sel = rng.choice(hits, size=min(nsub, len(hits)), replace=False)
-    pos = jnp.asarray(g[sel, 0:3])
-    nrm = jnp.asarray(g[sel, 3:6])
-    tan = jnp.asarray(g[sel, 9:12])
-    bit = jnp.asarray(g[sel, 12:15])
+    pos = jnp.asarray(np.asarray(g.position)[sel])
+    nrm = jnp.asarray(np.asarray(g.normal)[sel])
+    tan = jnp.asarray(np.asarray(g.tangent)[sel])
+    bit = jnp.asarray(np.asarray(g.bitangent)[sel])
     n = pos.shape[0]
     log(f"pixel subset: {n} of {len(hits)} hits")
 
@@ -130,10 +134,12 @@ def main():
     cw = jnp.asarray(C.CONE_WEIGHTS[: cfg.cones.num_diffuse_cones])
     w_diff = jnp.einsum("k,nkb->nb", cw, wb)
 
-    stage = os.environ.get("VCT_FIDELITY_STAGE", "all")
+    if stage is None:
+        stage = os.environ.get("VCT_FIDELITY_STAGE", "all")
     res = {}
-    dfs = tuple(int(x) for x in os.environ.get(
-        "VCT_FIDELITY_DF", "128,256").split(","))
+    if dfs is None:
+        dfs = tuple(int(x) for x in os.environ.get(
+            "VCT_FIDELITY_DF", "128,256").split(","))
     if stage in ("all", "diffuse"):
         for df in dfs:
             t0 = time.time()
@@ -145,36 +151,9 @@ def main():
             log(f"field {df}^3 diffuse: rel RMS {err:.4f} "
                 f"({time.time()-t0:.1f}s)")
 
-    # ---- the r4 percone specular kernel vs the exact oracle ----
-    if stage in ("all", "kernelspec"):
-        from vct_tpu.ops import specmarch_pallas as SP
-        eye = pos - jnp.asarray(camera.position, jnp.float32)
-        eye = -eye / jnp.linalg.norm(eye, axis=1, keepdims=True)
-        refl = shading.reflect_eye(nrm, eye)
-        s_rgb, s_occ = shading.indirect_specular_percone(cfg, mips, pos,
-                                                         nrm, refl)
-        spec_oracle_k = np.concatenate(
-            [np.asarray(s_rgb), np.asarray(s_occ)[:, None]], axis=1)
-        # the kernel runs through the SHARED fast-path pass (Morton
-        # pixel clustering + brick selection + kernel)
-        from vct_tpu.render import fast as F
-        gg = jnp.asarray(g)
-        posf, nrmf = gg[:, 0:3], gg[:, 3:6]
-        hitf = gg[:, 19] > 0.5
-        eyef = shading.C.normalize(
-            jnp.asarray(camera.position, jnp.float32) - posf)
-        pages = SP.pack_spec_mips(mips)
-        so_raw = np.asarray(F.spec_percone_pass(
-            cfg, pages, posf, nrmf, nrmf, eyef, hitf,
-            interpret=jax.default_backend() != "tpu"))
-        err = rel_rms(so_raw[sel], spec_oracle_k)
-        res["specular_percone_kernel_rel_rms"] = err
-        log(f"percone specular KERNEL: rel RMS {err:.4f}")
-
-    # ---- end-to-end image error: fast path vs percone-oracle pixels ----
+    # ---- end-to-end image error: camera pass vs percone-oracle pixels ----
     if stage in ("all", "image"):
         import dataclasses as _dc
-        from vct_tpu.render import fast as F
         d_sel = jnp.asarray(dirs.reshape(-1, 3)[sel])
         o_sel = jnp.asarray(origins.reshape(-1, 3)[sel])
         cam_pos = jnp.asarray(camera.position, jnp.float32)
@@ -187,10 +166,8 @@ def main():
                 ("image_field_rel_rms", cfg),
                 ("image_exact_specular_rel_rms",
                  preset("sponza256_exact_specular"))):
-            tables = F.build_frame_tables(cfg_f, voxels, mats)
-            img = np.asarray(F.render_frame(
-                cfg_f, ds, tables, mats, origins, dirs, cam_pos,
-                interpret=jax.default_backend() != "tpu"))
+            img = np.asarray(R.render_camera_pass(
+                cfg_f, ds, voxels, mats, origins, dirs, cam_pos))
             err = rel_rms(img.reshape(-1, 3)[sel], img_oracle)
             res[name] = err
             log(f"{name}: rel RMS {err:.4f}")
@@ -221,7 +198,8 @@ def main():
     res["basis"] = int(cfg.cones.field_basis)
     res["power_diffuse"] = float(cfg.cones.basis_power_diffuse)
     res["power_specular"] = float(cfg.cones.basis_power_specular)
-    out_path = os.environ.get("VCT_FIDELITY_OUT", "FIDELITY_r04.json")
+    if out_path is None:
+        out_path = os.environ.get("VCT_FIDELITY_OUT", "fidelity.json")
     try:
         with open(out_path) as f:
             prev = json.load(f)
@@ -231,6 +209,7 @@ def main():
     with open(out_path, "w") as f:
         json.dump(prev, f, indent=1)
     print(json.dumps(prev))
+    return prev
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """bfloat16 dense-march compute (GridConfig.compute="bfloat16").
 
-The contractions run at bf16 MXU throughput with f32 accumulation; results
+The contractions run in bf16 with f32 accumulation; results
 must track the f32 path within bf16's ~0.4% per-tap relative error.  Note
 the reference stores voxels as RGBA8 (Voxel_Cone_Tracing.h:119) — 8-bit
 fixed point — so bf16 still exceeds the reference's own precision.

@@ -1,10 +1,10 @@
-"""End-to-end fast frame path (render/fast.py) vs renderer.render_rays at
-the same field-mode config — images must agree up to bf16 field matmuls
-and per-tile lod selection."""
+"""End-to-end GPU camera pass (render/fast.py, kernel in interpret mode)
+vs renderer.render_rays at the same field-mode config — the two shade with
+the same XLA code, so images agree except where the binned and brute-force
+raycasts resolve a shared-edge tie differently."""
 
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,47 +46,36 @@ class TestFastPath:
         cfg, ds, mats, voxels, origins, dirs, cam = cornell_setup
         ref = R.render_rays(cfg, ds, voxels, mats, origins, dirs, cam,
                             chunk_size=1024)
-        tables = F.build_frame_tables(cfg, voxels, mats)
-        out = F.render_frame(cfg, ds, tables, mats, origins, dirs, cam,
+        out = F.render_frame(cfg, ds, voxels, mats, origins, dirs, cam,
                              interpret=True)
         assert out.shape == ref.shape
         ref = np.asarray(ref)
         out = np.asarray(out)
         assert np.isfinite(out).all()
-        # bf16 field matmul + per-tile lod: bound mean and p99 error
         err = np.abs(out - ref)
-        assert err.mean() < 0.01, err.mean()
-        assert np.percentile(err, 99) < 0.06, np.percentile(err, 99)
+        assert err.mean() < 1e-4, err.mean()
+        assert np.percentile(err, 99) < 1e-4, np.percentile(err, 99)
 
     def test_textured_scene_runs(self):
-        # enough tiles that per-tile AABBs stay brick-sized (at tiny
-        # resolutions a single 16x16 tile spans a huge frustum and the
-        # taps legitimately fall back to coarse mips)
         cfg = _cfg(32, 96, 64)
-        # NOTE on the error bound: the fast path mip-filters atlas
-        # textures by per-tile UV footprint (ops/material_pallas.py, the
-        # hardware-texture-unit behavior); render_rays samples level 0.
-        # At 96x64 every tile's footprint is huge, so textured surfaces
-        # legitimately differ by the texture's local variance.  Level-0
-        # exactness is pinned in tests/test_material_pallas.py.
         scene = atrium()
         camera = cameralib.Camera(position=(48.0, -10.0, 0.0), yaw=180.0)
         ds, mats, samples = R.prepare_scene(cfg, scene)
         assert mats.atlas is not None
         voxels = R.build_voxel_state_staged(cfg, samples, mats)
-        tables = F.build_frame_tables(cfg, voxels, mats)
         origins, dirs = cameralib.primary_rays(
             camera, cfg.render.width, cfg.render.height)
         cam = jnp.asarray(camera.position, jnp.float32)
         ref = R.render_rays(cfg, ds, voxels, mats, origins, dirs, cam,
                             chunk_size=512)
-        out = F.render_frame(cfg, ds, tables, mats, origins, dirs, cam,
+        out = F.render_frame(cfg, ds, voxels, mats, origins, dirs, cam,
                              interpret=True)
         out = np.asarray(out)
         ref = np.asarray(ref)
         assert np.isfinite(out).all()
         err = np.abs(out - ref)
-        assert err.mean() < 0.03, err.mean()
+        assert err.mean() < 1e-3, err.mean()
+        assert (err.max(axis=-1) > 1e-3).mean() < 0.01
 
     def test_no_specular_config(self, cornell_setup):
         cfg, ds, mats, voxels, origins, dirs, cam = cornell_setup
@@ -96,10 +85,9 @@ class TestFastPath:
         scene = cornell_box(size=100.0)
         ds2, mats2, samples = R.prepare_scene(cfg2, scene)
         voxels2 = R.build_voxel_state_staged(cfg2, samples, mats2)
-        tables = F.build_frame_tables(cfg2, voxels2, mats2)
-        out = F.render_frame(cfg2, ds2, tables, mats2, origins, dirs, cam,
+        out = F.render_frame(cfg2, ds2, voxels2, mats2, origins, dirs, cam,
                              interpret=True)
         ref = R.render_rays(cfg2, ds2, voxels2, mats2, origins, dirs, cam,
                             chunk_size=1024)
         err = np.abs(np.asarray(out) - np.asarray(ref))
-        assert err.mean() < 0.01, err.mean()
+        assert err.mean() < 1e-4, err.mean()

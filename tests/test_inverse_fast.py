@@ -1,9 +1,8 @@
-"""Inverse rendering THROUGH the Pallas camera pass (config 4 + the fast
-path): gradient parity vs the XLA path and loss descent — the round-2
-"gradients through the fast path" deliverable (VERDICT missing #4/#6).
-
-Runs the kernels in interpret mode on the CPU backend; the same graph
-compiles for TPU (tests/test_tpu_compile.py covers kernel lowering).
+"""Inverse rendering through the camera pass (InverseConfig camera_pass=
+"fast", renderer.render_camera_pass): gradient parity vs render_rays and
+loss descent.  On the CPU the camera pass is render_rays itself; the
+binned kernel's gradient parity in interpret mode is in
+tests/test_camera_pass.py, and chip_smoke.py checks it on a GPU.
 """
 
 import dataclasses

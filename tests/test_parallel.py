@@ -69,8 +69,8 @@ def test_sharded_render_matches_replicated(setup):
 
 
 def test_shardmap_camera_matches_replicated(setup):
-    """The collective-free shard_map camera pass (the scaling harness's
-    production path, scripts/scaling_attrib.py) == the replicated render."""
+    """The collective-free shard_map camera pass (the four-card frame's
+    production path) == the replicated render."""
     cfg, ds, mats, samples, origins, dirs, cam_pos = setup
     mesh = meshlib.make_mesh(n_data=4, n_model=2)
     voxels = R.build_voxel_state(cfg, samples, mats)

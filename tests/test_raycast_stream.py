@@ -1,19 +1,23 @@
-"""Streamed+culled raycast (ops/raycast_pallas.raycast_stream) vs the
-whole-table kernel and the XLA path: bit-parity, culling conservativeness,
-and the subdivision stress fixture (scene/mesh.subdivide_scene).
+"""Binned raycast properties beyond brute-force parity: culling
+conservativeness (a strip's segment vs every triangle), the subdivision
+stress fixture (scene/mesh.subdivide_scene), Morton-order invariance and
+per-material shininess through the kernel's G-buffer.
 
-All kernel runs use interpret=True (CPU); tests/test_tpu_compile.py
-compiles the real thing on hardware.
+All kernel runs use interpret=True (CPU); tests/test_gpu.py compiles the
+real thing on a GPU.
 """
 
-import jax
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from vct_tpu.config import preset
 from vct_tpu.core import camera as cameralib
-from vct_tpu.ops import raycast_pallas as RP
+from vct_tpu.ops import binrast_pallas as BR
+from vct_tpu.render import fast as F
+from vct_tpu.render import gbuffer as GB
 from vct_tpu.render import renderer as R
 from vct_tpu.scene.atrium import atrium
 from vct_tpu.scene.mesh import subdivide_scene
@@ -24,8 +28,7 @@ W, H = 64, 32
 @pytest.fixture(scope="module")
 def rays():
     camera = cameralib.Camera(position=(48.0, -10.0, 0.0), yaw=180.0)
-    origins, dirs = cameralib.primary_rays(camera, W, H)
-    return origins.reshape(-1, 3)[0], dirs.reshape(-1, 3)
+    return cameralib.primary_rays(camera, W, H)
 
 
 @pytest.fixture(scope="module")
@@ -42,138 +45,79 @@ def scene_big():
     return ds, mats
 
 
-def _stream(ds, mats, origin, d, lists=None, counts=None):
-    isect, attrsT, spheres, _ = RP.pack_tables_stream(
-        ds, origin, mats.albedo, mats.specular)
-    nrt = d.shape[0] // RP.TILE
-    if lists is None:
-        lists, counts = RP.select_chunks(
-            d.reshape(nrt, RP.TILE, 3), spheres)
-    return np.asarray(RP.raycast_stream(
-        d, origin, isect, attrsT, lists, counts, spheres,
-        interpret=True))
-
-
-def test_stream_matches_whole_table(scene_small, rays):
-    ds, mats = scene_small
-    origin, d = rays
-    isect, attrs, _ = RP.pack_tables(ds, origin, mats.albedo, mats.specular)
-    g_old = np.asarray(RP.raycast_gbuf24(d, origin, isect, attrs,
-                                         interpret=True))
-    g_new = _stream(ds, mats, origin, d)
-    assert (g_old[:, 19] == g_new[:, 19]).all()
-    np.testing.assert_allclose(g_new, g_old, rtol=1e-6, atol=1e-6)
+def _gbuf(ds, origins, dirs):
+    t, tri = F.raycast_image(ds, origins, dirs, interpret=True)
+    o = origins.reshape(-1, 3)[0]
+    return GB.hits_to_gbuffer(ds, GB.pinhole_constants(ds, o), o,
+                              dirs.reshape(-1, 3), t.reshape(-1),
+                              tri.reshape(-1))
 
 
 def test_culling_is_conservative(scene_big, rays):
-    """Culled chunk lists find the same nearest hit as processing every
-    chunk — no winner is ever in a culled chunk.  Hit DISTANCES (and so
-    positions) are bit-equal; winner ATTRIBUTES may differ only where
-    two coincident triangles tie at exactly equal t (tie-breaking
-    follows list order, which the near-sort permutes — the documented
-    deviation in the module header)."""
-    ds, mats = scene_big
-    origin, d = rays
-    isect, attrsT, spheres, _ = RP.pack_tables_stream(
-        ds, origin, mats.albedo, mats.specular)
-    nrt = d.shape[0] // RP.TILE
-    lists, counts = RP.select_chunks(d.reshape(nrt, RP.TILE, 3), spheres)
-    nchunk = isect.shape[1] // RP.CHUNK
-    assert int(jnp.max(counts)) < nchunk, "expected some culling"
-    full_lists = jnp.broadcast_to(
-        jnp.arange(lists.shape[1], dtype=jnp.int32)[None, :],
-        lists.shape) % nchunk
-    full_counts = jnp.full((nrt,), nchunk, jnp.int32)
-    g_culled = _stream(ds, mats, origin, d, lists, counts)
-    g_full = _stream(ds, mats, origin, d, full_lists, full_counts)
-    np.testing.assert_array_equal(g_culled[:, 18], g_full[:, 18])  # t
-    np.testing.assert_array_equal(g_culled[:, 19], g_full[:, 19])  # hit
-    np.testing.assert_array_equal(g_culled[:, 0:3], g_full[:, 0:3])
-    same = np.all(g_culled == g_full, axis=1)
-    assert same.mean() > 0.99, same.mean()   # ties are rare edge events
+    """Binned segments find the same nearest hit as giving every strip
+    the whole triangle table — no winner is ever culled.  The per-(ray,
+    triangle) math is the same and ties go to the lowest id, so t and the
+    winner are bit-equal."""
+    ds, _ = scene_big
+    origins, dirs = rays
+    origin = origins.reshape(-1, 3)[0]
+    d = BR.strip_order(dirs)
+    pc = GB.pinhole_constants(ds, origin)
+    binned = BR.bin_scene(ds, pc, origin, d, dirs)
+    ns = d.shape[0] // BR.STRIPE
+    t_real = ds.v0.shape[0]
+    nslice = -(-t_real // BR.SLICE)
+    assert int(jnp.max(binned.scal[1] + binned.scal[3])) < nslice, (
+        "expected some culling")
+    tri = jnp.arange(nslice * BR.SLICE, dtype=jnp.int32) % t_real
+    tbl = jnp.concatenate([pc.a, pc.b, pc.c, pc.k[:, None]], axis=1)
+    scal = jnp.zeros((4, ns), jnp.int32).at[1].set(nslice)
+    full = BR.Bins(scal=scal, table=tbl[tri].T, tri=tri)
+    tmin = jnp.zeros((d.shape[0],))
+    t_c, i_c = BR.raycast_binned(binned, d, tmin, interpret=True)
+    t_f, i_f = BR.raycast_binned(full, d, tmin, interpret=True)
+    np.testing.assert_array_equal(np.asarray(t_c), np.asarray(t_f))
+    np.testing.assert_array_equal(np.asarray(i_c), np.asarray(i_f))
 
 
 def test_subdivided_scene_matches_original(scene_small, scene_big, rays):
     """subdivide_scene leaves the surfaces identical: hit positions from
     the 16x-triangle scene match the original's to float tolerance."""
-    origin, d = rays
-    g0 = _stream(*scene_small, origin, d)
-    g1 = _stream(*scene_big, origin, d)
-    assert (g0[:, 19] == g1[:, 19]).mean() > 0.995      # edge rays may flip
-    both = (g0[:, 19] > 0.5) & (g1[:, 19] > 0.5)
-    np.testing.assert_allclose(g1[both][:, 0:3], g0[both][:, 0:3],
+    g0 = _gbuf(scene_small[0], *rays)
+    g1 = _gbuf(scene_big[0], *rays)
+    h0, h1 = np.asarray(g0.hit), np.asarray(g1.hit)
+    assert (h0 == h1).mean() > 0.995      # edge rays may flip
+    both = h0 & h1
+    np.testing.assert_allclose(np.asarray(g1.position)[both],
+                               np.asarray(g0.position)[both],
                                rtol=1e-3, atol=1e-2)
 
 
 def test_morton_sort_preserves_image(rays):
-    """DeviceScene triangle reordering changes nothing visible (XLA path)."""
-    from vct_tpu.render.gbuffer import DeviceScene, raycast_chunk
-    origin, d = rays
+    """DeviceScene triangle reordering changes nothing visible."""
+    origins, dirs = rays
     scene = atrium()
-    ds_s = DeviceScene.from_scene(scene, morton_sort=True)
-    ds_u = DeviceScene.from_scene(scene, morton_sort=False)
-    o = jnp.broadcast_to(origin, d.shape)
-    ga = raycast_chunk(ds_s, o, d)
-    gb = raycast_chunk(ds_u, o, d)
+    ga = _gbuf(GB.DeviceScene.from_scene(scene, morton_sort=True), *rays)
+    gb = _gbuf(GB.DeviceScene.from_scene(scene, morton_sort=False), *rays)
     np.testing.assert_array_equal(np.asarray(ga.hit), np.asarray(gb.hit))
     np.testing.assert_allclose(np.asarray(ga.position),
                                np.asarray(gb.position), rtol=1e-5, atol=1e-5)
 
 
-def test_per_material_shininess_rides_gbuffer(scene_small, rays):
-    """MTL Ns flows scene -> MaterialTable -> raycast attrs -> gbuf col 27
-    (round-1 item 10: Ns was parsed but ignored).  Distinct per-material
-    exponents so the check cannot pass on the old hardcoded 20."""
-    ds, mats = scene_small
-    origin, d = rays
-    shin = jnp.arange(mats.shininess.shape[0], dtype=jnp.float32) * 7 + 5
-    isect, attrsT, spheres, _ = RP.pack_tables_stream(
-        ds, origin, mats.albedo, mats.specular, shin)
-    nrt = d.shape[0] // RP.TILE
-    lists, counts = RP.select_chunks(d.reshape(nrt, RP.TILE, 3), spheres)
-    g = np.asarray(RP.raycast_stream(d, origin, isect, attrsT, lists,
-                                     counts, spheres, interpret=True))
-    hit = g[:, 19] > 0.5
-    assert hit.any()
-    mat_ids = g[hit, 17].astype(np.int32)
+def test_per_material_shininess_rides_gbuffer(rays):
+    """MTL Ns flows scene -> MaterialTable -> the kernel's G-buffer
+    material -> the shading exponent (the reference hardcodes 20 for
+    every mesh).  Distinct per-material exponents so the check cannot
+    pass on a constant."""
+    scene = atrium()
+    scene = dataclasses.replace(scene, materials=[
+        dataclasses.replace(m, shininess=5.0 + 7.0 * i)
+        for i, m in enumerate(scene.materials)])
+    ds = GB.DeviceScene.from_scene(scene)
+    mats = R.MaterialTable.from_scene(scene)
+    g = _gbuf(ds, *rays)
+    hit = np.asarray(g.hit)
+    mat_ids = np.asarray(g.material)[hit]
     assert len(set(mat_ids.tolist())) > 1     # multiple materials visible
-    expect = np.asarray(shin)[mat_ids]
-    np.testing.assert_allclose(g[hit, 27], expect, rtol=1e-6)
-
-
-def test_raycast_gradients_reach_albedo(scene_small, rays):
-    """Albedo gradients flow through the raycast kernel's custom VJP
-    (linear one-hot attr fetch) and match finite differences."""
-    ds, mats = scene_small
-    origin, d = rays
-
-    def loss(albedo):
-        i2, a2, _ = RP.pack_tables(ds, origin, albedo, mats.specular,
-                                   mats.shininess)
-        g = RP.raycast_gbuf24(d, origin, i2, a2, interpret=True)
-        return jnp.sum(g[:, 20:24] * jnp.arange(1.0, 5.0))
-
-    grad = np.asarray(jax.grad(loss)(mats.albedo))
-    assert np.isfinite(grad).all() and np.abs(grad).max() > 0
-    eps = 1e-3
-    m0 = np.asarray(mats.albedo)
-    e = np.zeros_like(m0)
-    e[1, 2] = eps
-    fd = float(loss(jnp.asarray(m0 + e)) - loss(jnp.asarray(m0 - e)))
-    fd /= 2 * eps
-    np.testing.assert_allclose(grad[1, 2], fd, rtol=1e-2, atol=1e-2)
-
-
-def test_raycast_ref_matches_kernel(scene_small, rays):
-    ds, mats = scene_small
-    origin, d = rays
-    isect, attrs, _ = RP.pack_tables(ds, origin, mats.albedo, mats.specular,
-                                     mats.shininess)
-    gk = np.asarray(RP.raycast_gbuf24(d, origin, isect, attrs,
-                                      interpret=True))
-    gr = np.asarray(RP.raycast_ref(d, origin, isect, attrs))
-    # 1e-4: kernel and ref share the dot3 expression, but the one-hot
-    # attribute reductions round differently, so edge rays whose two
-    # coincident candidates tie within ~1 ulp of t may interpolate
-    # microscopically apart
-    np.testing.assert_allclose(gk, gr, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(mats.shininess[g.material])[hit],
+                               5.0 + 7.0 * mat_ids, rtol=1e-6)

@@ -12,7 +12,7 @@ Render()) maps to offline commands over the same pipeline:
            volume / shadow map (DrawDepthTexture, :192-211), and G-buffer
            depth/normal views
 
-Usage:  python -m vct_tpu render --preset cornell64_full --out /tmp/img.png
+Usage:  python -m vct_tpu render --preset cornell64_full --out img.png
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ def _parse_vec3(s: str):
 
 
 def _build_cfg(args):
-    from vct_tpu.config import preset, GridConfig
+    from vct_tpu.config import preset
 
     cfg = preset(args.preset)
     if args.dim:
@@ -106,9 +106,11 @@ def _add_common(p):
 
 
 def _setup_backend(args):
+    import jax
     if args.cpu:
-        import jax
         jax.config.update("jax_platforms", "cpu")
+    from vct_tpu.utils.profiling import enable_compile_cache
+    enable_compile_cache()
 
 
 def _prepare(args, cfg, timer):
@@ -125,19 +127,10 @@ def _prepare(args, cfg, timer):
     with timer.stage("build_voxel_state") as box:
         voxels = R.build_voxel_state_staged(cfg, samples, mats)
         box["result"] = voxels.radiance_mips[0]
-    tables = None
-    if R.use_fast_path(cfg):
-        from vct_tpu.render import fast as F
-        with timer.stage("frame_tables") as box:
-            tables = F.build_frame_tables(cfg, voxels, mats)
-            box["result"] = tables.field_mips[0]
-        log("camera pass: fast Pallas path (render/fast.py)")
-    return ds, mats, samples, voxels, tables
+    return ds, mats, samples, voxels
 
 
-def _render_frame(cfg, ds, voxels, mats, camera, timer, name="render",
-                  tables=None):
-    import jax
+def _render_frame(cfg, ds, voxels, mats, camera, timer, name="render"):
     import jax.numpy as jnp
     from vct_tpu.core import camera as cameralib
     from vct_tpu.render import renderer as R
@@ -147,7 +140,7 @@ def _render_frame(cfg, ds, voxels, mats, camera, timer, name="render",
     cam_pos = jnp.asarray(camera.position, jnp.float32)
     with timer.stage(name) as box:
         img = R.render_camera_pass(cfg, ds, voxels, mats, origins, dirs,
-                                   cam_pos, frame_tables=tables)
+                                   cam_pos)
         box["result"] = img
     return np.asarray(img)
 
@@ -160,9 +153,8 @@ def cmd_render(args):
     cfg = _build_cfg(args)
     timer = P.StageTimer(log=log)
     with P.perfetto_trace(args.trace_dir):
-        ds, mats, samples, voxels, tables = _prepare(args, cfg, timer)
-        img = _render_frame(cfg, ds, voxels, mats, _camera(args), timer,
-                            tables=tables)
+        ds, mats, samples, voxels = _prepare(args, cfg, timer)
+        img = _render_frame(cfg, ds, voxels, mats, _camera(args), timer)
     I.write_png(args.out, I.tonemap(img, gamma=args.gamma,
                                     exposure=args.exposure))
     log(timer.report())
@@ -180,7 +172,7 @@ def cmd_orbit(args):
     _setup_backend(args)
     cfg = _build_cfg(args)
     timer = P.StageTimer(log=log)
-    ds, mats, samples, voxels, tables = _prepare(args, cfg, timer)
+    ds, mats, samples, voxels = _prepare(args, cfg, timer)
     os.makedirs(args.out_dir, exist_ok=True)
     radius = float(np.linalg.norm(np.asarray(args.camera)))
     for i in range(args.frames):
@@ -190,7 +182,7 @@ def cmd_orbit(args):
         yaw = math.degrees(math.atan2(-math.cos(ang), -math.sin(ang)))
         cam = cameralib.Camera(position=pos, yaw=yaw, pitch=args.pitch)
         img = _render_frame(cfg, ds, voxels, mats, cam, timer,
-                            name=f"frame{i:03d}", tables=tables)
+                            name=f"frame{i:03d}")
         path = os.path.join(args.out_dir, f"frame_{i:03d}.png")
         I.write_png(path, I.tonemap(img, gamma=args.gamma,
                                     exposure=args.exposure))
@@ -227,7 +219,7 @@ def cmd_debug(args):
     _setup_backend(args)
     cfg = _build_cfg(args)
     timer = P.StageTimer(log=log)
-    ds, mats, samples, voxels, _tables = _prepare(args, cfg, timer)
+    ds, mats, samples, voxels = _prepare(args, cfg, timer)
     os.makedirs(args.out_dir, exist_ok=True)
 
     def dump(name, img):
@@ -275,18 +267,18 @@ def main(argv=None):
 
     p = sub.add_parser("render", help="render one frame to PNG")
     _add_common(p)
-    p.add_argument("--out", default="/tmp/vct_render.png")
+    p.add_argument("--out", default="vct_render.png")
     p.set_defaults(fn=cmd_render)
 
     p = sub.add_parser("orbit", help="render an orbit sequence")
     _add_common(p)
     p.add_argument("--frames", type=int, default=8)
-    p.add_argument("--out-dir", default="/tmp/vct_orbit")
+    p.add_argument("--out-dir", default="vct_orbit")
     p.set_defaults(fn=cmd_orbit)
 
     p = sub.add_parser("debug", help="dump pipeline internals as PNGs")
     _add_common(p)
-    p.add_argument("--out-dir", default="/tmp/vct_debug")
+    p.add_argument("--out-dir", default="vct_debug")
     p.set_defaults(fn=cmd_debug)
 
     args = ap.parse_args(argv)

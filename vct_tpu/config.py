@@ -27,7 +27,7 @@ class GridConfig:
     anisotropic: bool = False      # 6-direction mips (ref's acknowledged-missing feature)
     dtype: str = "float32"
     # dense-march contraction dtype: "bfloat16" runs the resample matmuls
-    # at bf16 MXU throughput with f32 accumulation (core/dense.py); the
+    # at the tensor cores' bf16 rate with f32 accumulation (core/dense.py); the
     # reference samples RGBA8 textures, so bf16 (8-bit mantissa) still
     # carries more precision than the reference's own voxel storage.
     compute: str = "float32"       # "float32" | "bfloat16"
@@ -61,30 +61,27 @@ class ConeSetConfig:
     #  "field": direction-major dense marches (core/dense.py) precompute
     #    cone-gather fields over a world-direction basis; per pixel the
     #    cones interpolate the fields at one position — exact at voxel
-    #    centers, trilinear+spherical interpolation elsewhere; the
-    #    TPU-native fast path (no arbitrary gathers in the march).
+    #    centers, trilinear+spherical interpolation elsewhere (one field
+    #    tap per pixel instead of a march).
     diffuse_mode: str = "percone"    # "percone" | "field"
     specular_mode: str = "percone"   # "percone" | "field"
     field_basis: int = 26            # direction-basis size for field mode
-    # Field resolution; None = min(grid, 128).  Measured fidelity at the
-    # sponza256 operating point vs the exact per-pixel cone march
-    # (scripts/fidelity_field.py -> FIDELITY_r03.json, 2048-pixel subset):
-    # diffuse rel-RMS 0.44 @128^3 vs 0.22 @256^3 (resolution-dominated;
-    # 256^3 costs 8x build time and ~7 GB of fields), specular rel-RMS
-    # 0.63 at BOTH (narrow mirror cones are basis-limited at 26 dirs —
-    # resolution does not help).  128 is therefore the perf default;
-    # set field_dim=grid.dim or the percone modes (the exact oracle
-    # path) when GI fidelity matters more than frame rate.
+    # Field resolution; None = min(grid, 128).  Fidelity vs the exact
+    # per-pixel cone march (scripts/fidelity_field.py) is resolution-
+    # dominated for diffuse and basis-limited for narrow specular cones
+    # (26 dirs); a 256^3 field holds 8x the cells of a 128^3 one (~7 GB
+    # at 26 dirs).  Set field_dim=grid.dim or the percone modes (the
+    # exact oracle path) when GI fidelity matters more than frame rate.
     field_dim: Optional[int] = None
     basis_power_diffuse: float = 8.0     # spherical interp sharpness
     basis_power_specular: float = 32.0
-    # Step-density factor for the SPECULAR basis-field build only (the
-    # r4 build split measured it at 421 ms of the 1.3 s build: 26 dirs x
-    # the long tan-0.07 schedule).  2.0 marches every other distance with
-    # the optical-depth-corrected composite (core/march.composite
-    # semantics) — a second-order change to a field whose mirror-cone
-    # error is already basis-limited (rel-RMS 0.63).  The exact percone
-    # path (specular_mode="percone") never uses this.
+    # Step-density factor for the SPECULAR basis-field build only (26
+    # dirs x the long tan-0.07 schedule make it the build's longest
+    # march).  2.0 marches every other distance with the optical-depth-
+    # corrected composite (core/march.composite semantics) — a second-
+    # order change to a field whose mirror-cone error is already
+    # basis-limited.  The exact percone path (specular_mode="percone")
+    # never uses this.
     field_specular_step_factor: float = 2.0
 
 
@@ -110,7 +107,7 @@ class ShadowConfig:
     mode="volume": dense directional march (core/dense.py) computes the
       light-transmittance volume once per scene+light; every shadow query is
       one trilinear tap.  Exact cone-shadow values at voxel centers; the
-      TPU-native replacement for the 4096^2 depth map (and the default).
+      differentiable replacement for the 4096^2 depth map (and the default).
     mode="percone": an explicit shadow cone marched from every query point —
       identical math, per-query cost (the oracle for "volume").
     mode="map": rasterized depth from the light + PCF, matching the
@@ -163,10 +160,6 @@ class RenderConfig:
     # the pre-r5 behavior).  Applies only when materials carry textures
     # (the reference reads alpha from DiffuseTexture, fs:167).
     alpha_mask_depth: int = 2
-    # fast path: masked pixels re-cast through the streamed kernel in a
-    # gathered subset of at most this many rays per iteration; overflow
-    # pixels keep the background fallback (conservative, budget-bounded)
-    alpha_mask_budget: int = 65536
     # display toggles (ref fields Voxel_Cone_Tracing.h:51-52, never wired there)
     show_diffuse: bool = True
     show_indirect_diffuse: bool = True
@@ -212,7 +205,6 @@ class VCTConfig:
     render: RenderConfig = dataclasses.field(default_factory=RenderConfig)
     voxelize: VoxelizeConfig = dataclasses.field(default_factory=VoxelizeConfig)
     sharding: ShardingConfig = dataclasses.field(default_factory=ShardingConfig)
-    use_pallas: bool = True          # Pallas kernels on TPU; pure-XLA otherwise
 
     def replace(self, **kw) -> "VCTConfig":
         return dataclasses.replace(self, **kw)
@@ -242,25 +234,18 @@ def preset(name: str) -> VCTConfig:
         )
     if name == "sponza256":
         # Config 3: Sponza-class scene, shadow cones, 256^3 grid, 1080p.
-        # Field-mode GI: the TPU-native fast path (volume shadows + basis
-        # fields).  specular_mode="percone" swaps the basis-field
-        # approximation (mirror cones are basis-limited: rel-RMS 0.63 at
-        # 26 dirs, FIDELITY_r03) for the per-pixel specular cone march
-        # kernel (ops/specmarch_pallas v2: class bricks, kernel rel-RMS
-        # 0.196 screen-wide, FIDELITY_r05) — which also drops the
-        # specular field build — at ~1.2 s/1080p for the specular pass
-        # (fidelity mode, not the interactive path; the march is ~29
-        # quadrilinear taps/pixel x 2M pixels); see
-        # preset("sponza256_exact_specular").
+        # Field-mode GI: volume shadows + basis fields, one tap per pixel
+        # for each.  preset("sponza256_exact_specular") swaps the
+        # basis-limited specular field for the exact per-pixel cone march.
         return VCTConfig(
             grid=GridConfig(dim=256, compute="bfloat16"),
             cones=ConeSetConfig(diffuse_mode="field", specular_mode="field"),
             render=RenderConfig(width=1920, height=1080),
         )
     if name == "sponza256_exact_specular":
-        # sponza256 with the exact per-pixel specular march (fidelity
-        # over frame rate; FIDELITY_r04 measures it at the north-star
-        # image-error target the 26-direction field cannot reach).
+        # sponza256 with the exact per-pixel specular march
+        # (shading.indirect_specular_percone): fidelity over frame rate,
+        # and no specular field build.
         return VCTConfig(
             grid=GridConfig(dim=256, compute="bfloat16"),
             cones=ConeSetConfig(diffuse_mode="field",

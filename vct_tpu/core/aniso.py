@@ -12,18 +12,17 @@ samples the directional levels blended by the squared direction components,
 so thin occluders seen face-on stay opaque at coarse lods instead of being
 diluted to alpha≈0.5 by the isotropic box filter.
 
-Representation (TPU-first):
+Representation:
   level 0:      (D, D, D, C)      — isotropic, shared with the iso pyramid
   level l >= 1: (d, d, d, 6, C)   — direction-minor packing so ONE trilinear
-                gather pulls all 6 directions as extra channels (gathers on
-                TPU cost per-row; widening the row is ~free), and the
-                per-direction blend is a single einsum over the 6-axis.
+                gather pulls all 6 directions as extra channels (one
+                contiguous row per corner), and the per-direction blend is
+                a single einsum over the 6-axis.
 Direction order: (+x, -x, +y, -y, +z, -z).
 
-Downsampling is the strided-slice formulation of core/grid.downsample2x
-(a 7-D reshape gets pathological (8,128) tiling on TPU — see the note
-there); each directional build is 8 slices + 4 composites + a mean, fused
-by XLA into one pass over the level.
+Downsampling is the strided-slice formulation of core/grid.downsample2x;
+each directional build is 8 slices + 4 composites + a mean, fused by XLA
+into one pass over the level.
 """
 
 from __future__ import annotations

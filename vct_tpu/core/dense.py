@@ -1,12 +1,11 @@
-"""Direction-major (grid-major) dense cone marching — the TPU-native core.
+"""Direction-major (grid-major) dense cone marching.
 
 The reference marches cones per fragment (VoxelConeTracing.fs:82-107):
-per-pixel gathers at arbitrary positions.  TPU hardware has no fast
-arbitrary-gather path (measured here: XLA gather ~80M rows/s vs 633 GB/s
-dense — ~100x off the roofline), so this module restructures the march to
-be GRID-major: march a cone *from every voxel center simultaneously* along
-a FIXED direction.  Then every step reads the mip level at
-(voxel_center + dist_k * dir) — a constant world offset — which is a
+per-pixel gathers at arbitrary positions.  For the products every pixel
+shares (the light volume, the basis cone fields) this module restructures
+the march to be GRID-major: march a cone *from every voxel center
+simultaneously* along a FIXED direction.  Then every step reads the mip
+level at (voxel_center + dist_k * dir) — a constant world offset — a
 *separable shifted-trilinear resample*: three axis gathers of whole slices
 (contiguous, bandwidth-speed) + lerps.  Zero per-element gathers.
 
@@ -88,22 +87,15 @@ def _take3(level: Array, i0: Array, i1: Array, f: Array, df: int) -> Array:
     """Separable resample with traced per-axis index/weight vectors.
     level (dl,dl,dl,C); i0,i1 (3,df) int32; f (3,df). -> (df,df,df,C).
 
-    Each axis is one (df, dl) x (dl, ...) contraction on the MXU — the
-    interpolation matrices are built on the fly from the index vectors, so
-    scan carries only O(df) metadata per step while the FLOPs ride the
-    systolic array instead of gather units.
+    Each axis is one (df, dl) x (dl, ...) contraction (a matrix product)
+    — the interpolation matrices are built on the fly from the index
+    vectors, so scan carries only O(df) metadata per step while the FLOPs
+    run as dense products instead of per-element gathers.  The z
+    contraction's natural minor dim is only C (=4); a Kronecker (z,C)-
+    fused form would pay C^2 structural-zero FLOPs and break fusion.
 
-    The z contraction's natural lane dim is only C (=4); measured on
-    TPU (r3) the batched small-matmul form still wins over a Kronecker
-    (z,C)-fused full-lane matmul (which pays C^2 structural-zero FLOPs
-    and breaks fusion: 151 ms vs 102 ms at the sponza256 operating
-    point), and the per-axis f32 accumulate/round-trip is fused away by
-    XLA (bf16-preferred intermediates measure identically).  On-device
-    the whole march runs at ~0.76 of peak HBM bandwidth (profiler trace;
-    the remaining gap in wall-clock measurements is host readback).
-
-    The contractions run in `level.dtype` (bfloat16 doubles-to-quadruples
-    MXU throughput) and accumulate/return float32.
+    The contractions run in `level.dtype` (bfloat16 for the tensor
+    cores' bf16 rate) and accumulate/return float32.
     """
     dl = level.shape[0]
     wd = level.dtype
@@ -155,9 +147,9 @@ def directional_march_multi(
     whole march is vmapped over directions — so the compiled size is
     O(level pairs), independent of step count and direction count.
 
-    compute_dtype=jnp.bfloat16 runs the resample contractions in bf16 on
-    the MXU (~4x f32 peak) with float32 accumulation and compositing; the
-    carry and output are always float32.
+    compute_dtype=jnp.bfloat16 runs the resample contractions in bf16
+    with float32 accumulation and compositing; the carry and output are
+    always float32.
     """
     d0 = mips[0].shape[0]
     df = field_dim or d0

@@ -138,9 +138,8 @@ def downsample2x(grid: Array, alpha_mode: str = "mean") -> Array:
     d = grid.shape[0]
     if d == 1:
         return grid
-    # strided-slice formulation: a 7-D reshape(d/2,2,...) gets tiled (8,128)
-    # on its trailing size-2 dims on TPU — 64x memory padding (OOM at 256^3).
-    # Slices keep the layout 4-D and fuse cleanly.
+    # strided-slice formulation: slices keep the layout 4-D and fuse
+    # cleanly, where a 7-D reshape(d/2,2,...) puts size-2 dims minor
     corners = [
         grid[ix::2, iy::2, iz::2]
         for ix in (0, 1) for iy in (0, 1) for iz in (0, 1)

@@ -1,14 +1,15 @@
-"""Orbax checkpoint/resume for inverse-rendering optimization.
+"""Checkpoint/resume for inverse-rendering optimization.
 
 The reference has no persistent state at all (SURVEY.md §5 "Checkpoint:
 none — everything rebuilt at startup"); here optimization state
-(parameter pytree + optax state + step) saves/restores via Orbax so long
-inverse runs survive restarts — the standard JAX training-state story.
+(parameter pytree + optax state + step) saves/restores so long inverse
+runs survive restarts.
 
-Layout: <dir>/step_<N>/ Orbax PyTree checkpoints; restore_latest picks
-the highest step.  Arrays restore with their saved shardings dropped
-(single-host restore targets the default device); the sharded train path
-re-annotates via jit in_shardings.
+Layout: <dir>/step_<N>.npz holds the flattened (params, opt_state) leaves
+in tree order plus the step; restore_latest picks the highest step and
+unflattens against a template of the same structure.  Arrays restore to
+the default device; the sharded train path re-annotates via jit
+in_shardings.
 """
 
 from __future__ import annotations
@@ -18,28 +19,27 @@ import re
 from typing import Optional
 
 import jax
+import jax.numpy as jnp
 import numpy as np
-import orbax.checkpoint as ocp
 
 from vct_tpu.diff.inverse import OptimState
 
-_STEP_RE = re.compile(r"^step_(\d+)$")
+_STEP_RE = re.compile(r"^step_(\d+)\.npz$")
 
 
-def _step_dir(directory: str, step: int) -> str:
-    return os.path.join(os.path.abspath(directory), f"step_{step}")
+def _step_path(directory: str, step: int) -> str:
+    return os.path.join(os.path.abspath(directory), f"step_{step}.npz")
 
 
 def save(directory: str, state: OptimState) -> str:
     """Write one checkpoint; returns its path."""
-    path = _step_dir(directory, state.step)
-    ckptr = ocp.PyTreeCheckpointer()
-    payload = {
-        "params": state.params,
-        "opt_state": state.opt_state,
-        "step": np.asarray(state.step, np.int64),
-    }
-    ckptr.save(path, payload, force=True)
+    os.makedirs(directory, exist_ok=True)
+    path = _step_path(directory, state.step)
+    leaves = jax.tree_util.tree_leaves((state.params, state.opt_state))
+    arrays = {f"leaf_{i}": np.asarray(x) for i, x in enumerate(leaves)}
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, step=np.asarray(state.step, np.int64), **arrays)
+    os.replace(tmp, path)       # a crash mid-write leaves no torn file
     return path
 
 
@@ -56,20 +56,14 @@ def available_steps(directory: str):
 
 def restore(directory: str, step: int, template: OptimState) -> OptimState:
     """Restore one checkpoint shaped like `template`."""
-    path = _step_dir(directory, step)
-    ckptr = ocp.PyTreeCheckpointer()
-    payload = {
-        "params": template.params,
-        "opt_state": template.opt_state,
-        "step": np.asarray(template.step, np.int64),
-    }
-    restored = ckptr.restore(path, item=payload)
-    return OptimState(
-        params=jax.tree_util.tree_map(jax.numpy.asarray, restored["params"]),
-        opt_state=jax.tree_util.tree_map(
-            jax.numpy.asarray, restored["opt_state"]),
-        step=int(restored["step"]),
-    )
+    treedef = jax.tree_util.tree_structure(
+        (template.params, template.opt_state))
+    with np.load(_step_path(directory, step)) as z:
+        leaves = [jnp.asarray(z[f"leaf_{i}"])
+                  for i in range(treedef.num_leaves)]
+        saved_step = int(z["step"])
+    params, opt_state = jax.tree_util.tree_unflatten(treedef, leaves)
+    return OptimState(params=params, opt_state=opt_state, step=saved_step)
 
 
 def restore_latest(directory: str,

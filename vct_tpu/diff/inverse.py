@@ -17,18 +17,16 @@ Optimizable parameter sets (InverseConfig.optimize):
 
 Distribution: single-device here; the tile-DP sharded step lives in
 parallel/tile_dp.sharded_train_step_fn (same loss, mesh-annotated).
-Checkpoint/resume: diff/checkpoint.py (Orbax).
+Checkpoint/resume: diff/checkpoint.py.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 from typing import Callable, Dict, List, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 import optax
 
 from vct_tpu.config import VCTConfig
@@ -48,11 +46,11 @@ class InverseConfig:
     num_steps: int = 200
     loss: str = "l2"                  # "l2" | "l1"
     chunk_size: int = 4096
-    # camera pass inside the loss: "xla" = render_rays (any config);
-    # "fast" = the Pallas camera pass (render/fast.py — raycast + tap
-    # kernels, gradients via their custom VJPs; needs a fast-supported
-    # config: volume shadows + field cones).  "fast" uses the kernel
-    # interpreter off-TPU so CPU tests exercise the same graph.
+    # camera pass inside the loss: "xla" = render_rays, the brute-force
+    # oracle; "fast" = renderer.render_camera_pass, the backend's camera
+    # pass (on a GPU the binned Triton raycast + XLA shading; the raycast
+    # outputs carry no gradient, so gradients flow through shading as in
+    # render_rays).
     camera_pass: str = "xla"          # "xla" | "fast"
 
 
@@ -155,22 +153,9 @@ def make_loss_fn(
     def loss_fn(params, samples, mats, origins, dirs, target):
         mats2, voxels = _apply_params(inv, cfg, params, samples, mats)
         if inv.camera_pass == "fast":
-            from vct_tpu.render import fast as F
-            from vct_tpu.ops import raycast_pallas as RP
-            assert F.supported(cfg), (
-                "camera_pass='fast' needs volume shadows + field cones")
-            # render_frame switches to raycast_stream above 2*TCHUNK
-            # triangles, which has no VJP — jax.grad would fail at trace
-            # time with an opaque error (ADVICE r3)
-            assert ds.v0.shape[0] <= 2 * RP.TCHUNK, (
-                f"camera_pass='fast' is differentiable only up to "
-                f"{2 * RP.TCHUNK} triangles (the whole-table raycast "
-                f"kernel); this scene has {ds.v0.shape[0]} — use "
-                f"camera_pass='xla'")
-            tables = F.build_frame_tables(cfg, voxels, mats2)
-            img = F.render_frame(
-                cfg, ds, tables, mats2, origins, dirs, camera_position,
-                interpret=jax.default_backend() == "cpu")
+            img = R.render_camera_pass(cfg, ds, voxels, mats2, origins, dirs,
+                                       camera_position,
+                                       chunk_size=inv.chunk_size)
         else:
             img = R.render_rays(cfg, ds, voxels, mats2, origins, dirs,
                                 camera_position, chunk_size=inv.chunk_size)
@@ -220,7 +205,7 @@ def optimize(
     """Run the inverse optimization; returns final state + loss history.
 
     With checkpoint_dir set, resumes from the latest checkpoint there and
-    saves every checkpoint_every steps (Orbax, diff/checkpoint.py).
+    saves every checkpoint_every steps (diff/checkpoint.py).
     """
     from vct_tpu.core import camera as cameralib
 

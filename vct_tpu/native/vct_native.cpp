@@ -1,7 +1,7 @@
 // Native host runtime for vct_tpu: OBJ geometry parsing and stratified
 // surface-sample generation.
 //
-// This is the TPU-framework counterpart of the reference's C++ asset layer
+// This is the counterpart of the reference's C++ asset layer
 // (Voxel_Cone_Tracing_Final/Model.h:43-139 Assimp import, Mesh.h:41-82
 // vertex assembly): the device side of this framework is JAX/Pallas, but
 // scene ingest and sample generation are host-bound, string/branch-heavy

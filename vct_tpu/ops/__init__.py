@@ -1,31 +1,10 @@
-"""Pallas TPU kernels for the hot voxel ops.
+"""Hand-written kernels for the frame's hot path.
 
-Every kernel here has a pure-jax.numpy oracle in vct_tpu/core or
-vct_tpu/render and is parity-tested against it; on non-TPU backends the
-kernels run in interpreter mode so the same code path is exercised
-everywhere.
+  binrast_pallas — binned primary-visibility raycast (Pallas-Triton),
+                   the camera pass's raycast on a GPU (render/fast.py)
 
-Production kernels (all with frame call sites in render/fast.py):
-  raycast_pallas    — whole-table + streamed chunk-culled primary rays
-  prepass_pallas    — fused per-tile brick/material selection
-  material_pallas   — tile-coherent atlas-mip fetch + bump heights
-  tap_pallas        — shadow + basis-field deferred-shading taps
-  specmarch_pallas  — exact per-pixel specular cone march
-  mip_pallas        — fused 2x2x2 mip reduction chain
-
-Graduated-and-removed parity artifacts (VERDICT r3 weak #6): the r1
-`conemarch_pallas` per-pixel whole-pyramid march (64^3 VMEM cap) is
-superseded by specmarch_pallas, which streams mip bricks at any grid
-size with the same custom-VJP contract; the r1 `scatter_pallas`
-slab-owned voxelization scatter lost to XLA's segment scatter at the
-production operating point (a sequential per-sample read-modify-write
-cannot beat ~90 M scattered rows/s), so render/voxelize.splat's XLA
-path remains the shipped splat.
+Each kernel has a plain jax.numpy oracle (render/gbuffer.py for the
+raycast) and is parity-tested against it in interpret mode on the CPU.
+Everything else — voxelization, mips, dense marches, shading taps,
+material fetch — is plain XLA, which compiles for the GPU as it stands.
 """
-
-from vct_tpu.ops.mip_pallas import build_mips_pallas, downsample2x_pallas
-
-__all__ = [
-    "build_mips_pallas",
-    "downsample2x_pallas",
-]

@@ -1,16 +1,11 @@
-"""Raster-style binned raycast: screen-space triangle binning + a
-contiguous-segment Pallas streaming kernel.
+"""Raster-style binned raycast: screen-space triangle binning (XLA) + a
+Pallas-Triton kernel that walks each screen strip's triangle segment.
 
 The reference gets primary visibility from the HARDWARE RASTERIZER
 (main.cpp:77-94, VoxelConeTracing.vs + fixed-function raster + depth
-test): per-frame work scales with triangles, not rays x scene.  The r4
-streamed raycast (ops/raycast_pallas.raycast_stream) culled 128-triangle
-chunks against per-tile view cones, but chunk bounding spheres are fat
-relative to a 16x16-pixel tile's corridor: at 287k triangles each tile
-still marched ~42 chunks (~5400 triangles) and the front-to-back stop
-fired almost never (r5 probe) -> 216 ms/frame.
-
-This module earns raster scaling with the raster's own structure:
+test): per-frame work scales with triangles, not rays x scene.  The brute
+force (render/gbuffer.py) tests every ray against every triangle; this
+module earns raster scaling with the raster's own structure:
 
   1. Project every triangle to GNOMONIC screen coordinates
      (u, v) = (p.ex / p.f, p.ey / p.f) for a frame (ex, ey, f) built
@@ -23,89 +18,107 @@ This module earns raster scaling with the raster's own structure:
      over monotone column/row envelopes).  Triangles crossing the
      near plane are clipped against z = ZEPS first; fully-behind
      triangles drop (no forward ray can hit them).
-  3. Sort (bin, tri) pairs by bin, gather each bin's triangle rows into
-     one contiguous 128-aligned segment of a transposed (64, NP) table,
-     and stream it through the kernel in 1024-wide double-buffered DMAs
-     — per-strip work is now proportional to the triangles that
-     actually project onto the strip (measured mean ~190 at 287k tris,
-     vs ~5400 culled-corridor triangles before).
+  3. Sort (bin, tri) pairs by bin and gather each bin's triangle
+     constants into one contiguous SLICE-aligned segment of a transposed
+     (10, NP) table.  Per-strip work is proportional to the triangles
+     that actually project onto the strip (mean ~190 per strip at 287k
+     triangles and 1080p, vs all 287k for the brute force).
   4. Bins come in TWO granularities sharing the one sort: per-STRIP
      segments for triangles covering <= KB strips, and per-COLUMN
      segments for wide ones (near-plane straddlers legitimately span
-     many rows of a few columns — a flat per-column list costs each
-     strip ~1 extra gang where a global big list measured 4).  Each
-     strip streams its own segment then its column's, as one fused
-     front-back loop.
+     many rows of a few columns).  Each strip walks its own segment then
+     its column's, as one loop.
+
+The kernel runs a (strip, ray block) grid: each program loads its strip's
+four segment scalars, then loops over SLICE-triangle slices of the
+segment — a data-dependent trip count that XLA could only express by
+materialising padded (rays x max segment) arrays.  Best t and triangle id
+ride the loop carry.
 
 Testing a SUPERSET of a strip's overlapping triangles is always safe:
 the kernel takes the min-t winner, and extra candidates can only move
 the result toward the brute-force answer.  That makes every budget/
 margin decision here conservative-by-construction, and lets segment
-DMAs over-read into the next strip's rows instead of special-casing the
+reads run over into the next bin's rows instead of special-casing the
 tail.
 
-Math per (ray, triangle) is identical to raycast_pallas (Moller-
-Trumbore on per-triangle constants, first-min winner, one-hot MXU
-attribute fetch); output layout is raycast_gbuf24's (N, NOUT).
+Per (ray, triangle) the math is render/gbuffer.intersect_chunk_pinhole's
+(Moller-Trumbore with the shared origin folded into per-triangle
+constants, conditions multiplied through by |det|), and ties at equal t
+go to the lowest triangle id, as the oracle's argmin does.  The kernel
+reports only (t, triangle id); barycentrics and attributes come from
+gbuffer.hits_to_gbuffer, so gradients w.r.t. materials, light and
+radiance flow through XLA exactly as in renderer.render_rays.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from vct_tpu.ops import raycast_pallas as RP
-from vct_tpu.render.gbuffer import DeviceScene
+from vct_tpu.render.gbuffer import DeviceScene, PinholeConstants
 
 Array = jax.Array
 
-STRIPE = 1024        # rays per strip = one 16x64-pixel screen strip
-                     # (4 consecutive 16x16 tiles of fast.py's tile-major
-                     # layout; requires padded width % 64 == 0)
-GANGW = 256         # triangle rows per kernel inner iteration
-SEGAL = 128          # segment alignment (lane tile; DMA offset granule)
+STRIP_H = 16         # strip rows
+STRIP_W = 64         # strip columns; the padded frame is a multiple of both
+STRIPE = STRIP_H * STRIP_W   # rays per strip (contiguous in strip order)
+SLICE = 32           # triangles per kernel loop iteration; segments are
+                     # padded to a multiple of it
+RAYS = 64            # rays per kernel program (STRIPE % RAYS == 0)
+NUM_WARPS = 4
+NUM_STAGES = 2
 KA = 4               # slots per triangle in the dense emission (covers
                      # AABBs up to 4 strips — ~60% of tris at Sponza scale)
 KB = 16              # slots per triangle in the medium emission
 KC = 32              # slots per triangle in the per-column emission
                      # (caps the strip-grid width: 2048-pixel frames)
 ZEPS = 1e-3          # near-plane clip distance (world units)
+NROWS = 10           # table rows: a (3), b (3), c (3), k (1)
+EPS = 1e-7           # |det| floor (gbuffer.intersect_chunk_pinhole)
+TMIN_EPS = 1e-4      # t > 1e-4, multiplied through by |det|
 
 
 def _budgets(t_real: int):
     """Static emission budgets, scaled with the scene so the medium and
-    column tiers cannot overflow at Sponza-class counts (measured at 287k
+    column tiers cannot overflow at Sponza-class counts (counted at 287k
     tris / 1080p: ~10.6k medium, ~0.2k column; medium overflow falls back
     to the column tier, so only the column budget is load-bearing)."""
     nb_med = min(max(16384, t_real // 12), t_real)
     nb_col = min(max(8192, t_real // 32), t_real)
     return nb_med, nb_col
 
-NATTR = RP.NATTR
-NOUT = RP.NOUT
-_BIG = RP._BIG
+
+def strip_order(img: Array) -> Array:
+    """(hp, wp, ...) padded image -> strip-major (hp*wp, ...): each
+    16x64-pixel strip's rays contiguous, strips in row-major order."""
+    hp, wp = img.shape[:2]
+    c = img.shape[2:]
+    x = img.reshape((hp // STRIP_H, STRIP_H, wp // STRIP_W, STRIP_W) + c)
+    x = jnp.moveaxis(x, 2, 1)
+    return x.reshape((hp * wp,) + c)
 
 
-def pack_rows(ds: DeviceScene, origin: Array,
-              albedo: Optional[Array] = None,
-              specular: Optional[Array] = None,
-              shininess: Optional[Array] = None) -> Tuple[Array, int]:
-    """Fused per-triangle row table (Tp, 16 + NATTR): [isect | attrs],
-    from raycast_pallas.pack_tables (same per-origin constants)."""
-    isect, attrs, t = RP.pack_tables(ds, origin, albedo, specular,
-                                     shininess)
-    return jnp.concatenate([isect.T, attrs], axis=1), t
+def strip_unorder(flat: Array, hp: int, wp: int) -> Array:
+    """Inverse of strip_order."""
+    c = flat.shape[1:]
+    x = flat.reshape((hp // STRIP_H, wp // STRIP_W, STRIP_H, STRIP_W) + c)
+    x = jnp.moveaxis(x, 2, 1)
+    return x.reshape((hp, wp) + c)
 
 
-def _gnomonic_frame(dflat: Array, dimg: Array):
-    """Orthonormal (ex, ey, f): f = mean ray, ex along the image x axis."""
-    f = jnp.sum(dflat, axis=0)
+def _gnomonic_frame(dimg: Array):
+    """Orthonormal (ex, ey, f): f = the frustum axis (the sum of the four
+    corner rays — edge padding keeps the frame's own corners), ex along
+    the image x axis.  A mean over the padded rays would lean toward the
+    replicated edges and leave rays grazing the projection plane."""
+    f = dimg[0, 0] + dimg[0, -1] + dimg[-1, 0] + dimg[-1, -1]
     f = f / jnp.maximum(jnp.linalg.norm(f), 1e-12)
     ex = jnp.sum(dimg[:, -1] - dimg[:, 0], axis=0)
     ex = ex - jnp.dot(ex, f) * f
@@ -115,34 +128,33 @@ def _gnomonic_frame(dflat: Array, dimg: Array):
 
 
 def bin_triangles(ds: DeviceScene, origin: Array, dflat: Array,
-                  dimg: Array, rows: Array
-                  ) -> Tuple[Array, Array, Array, Array, Array]:
+                  dimg: Array) -> Tuple[Array, Array, Array]:
     """Screen-space binning -> per-strip contiguous triangle segments.
 
-    dflat: (ns*STRIPE, 3) unit rays in tile-major order; dimg: the same
-    rays as the padded (hp, wp, 3) image (hp % 16 == 0, wp % 64 == 0);
-    rows: pack_rows table (Tp, 64).
+    dflat: (ns*STRIPE, 3) unit rays in strip order (strip_order); dimg:
+    the same rays as the padded (hp, wp, 3) image (hp % 16 == 0,
+    wp % 64 == 0).
 
-    Returns (scal (4, ns) int32 [strip-segment row offset, strip gangs,
-    column-segment row offset, column gangs], isectP (16, NP),
-    n_col_total).  Budgets overflow conservatively:
-    medium overflow joins the column tier; column overflow beyond
-    NB_COL is dropped from binning (check the returned
+    Returns (scal (4, ns) int32 [strip-segment row offset, strip slices,
+    column-segment row offset, column slices], tri_p (NP,) int32 triangle
+    id of every table row, n_col_total).  Budgets overflow
+    conservatively: medium overflow joins the column tier; column
+    overflow beyond NB_COL is dropped from binning (check the returned
     n_col_total <= NB_COL to rule that out for a camera).
     """
     hp, wp = dimg.shape[:2]
-    assert hp % 16 == 0 and wp % 64 == 0, (hp, wp)
-    srows, scols = hp // 16, wp // 64
+    assert hp % STRIP_H == 0 and wp % STRIP_W == 0, (hp, wp)
+    srows, scols = hp // STRIP_H, wp // STRIP_W
     assert scols <= KC, (scols, "raise KC for frames wider than 2048px")
     ns = srows * scols
     n = dflat.shape[0]
     assert n == ns * STRIPE, (n, ns)
 
-    ex, ey, f = _gnomonic_frame(dflat, dimg)
+    ex, ey, f = _gnomonic_frame(dimg)
 
     def mv(a, b):
-        # exact f32 matvec: a (..., 3) . b (3,) on the VPU — the TPU's
-        # default bf16 matmul passes shift projections by ~half a strip
+        # exact f32 matvec a (..., 3) . b (3,) as multiply-adds: a TF32
+        # matmul would shift projections by a sizeable part of a strip
         return a[..., 0] * b[0] + a[..., 1] * b[1] + a[..., 2] * b[2]
 
     # --- strip rects from their own rays (+ one-pixel margin) ---
@@ -195,25 +207,17 @@ def bin_triangles(ds: DeviceScene, origin: Array, dflat: Array,
     cz = jnp.maximum(mv(cand, f), ZEPS)
     cu = mv(cand, ex) / cz * su
     cv = mv(cand, ey) / cz * sv
-    big_f = jnp.float32(_BIG)
-    t_ulo = jnp.min(jnp.where(cval, cu, big_f), axis=1)
-    t_uhi = jnp.max(jnp.where(cval, cu, -big_f), axis=1)
-    t_vlo = jnp.min(jnp.where(cval, cv, big_f), axis=1)
-    t_vhi = jnp.max(jnp.where(cval, cv, -big_f), axis=1)
+    t_ulo = jnp.min(jnp.where(cval, cu, jnp.inf), axis=1)
+    t_uhi = jnp.max(jnp.where(cval, cu, -jnp.inf), axis=1)
+    t_vlo = jnp.min(jnp.where(cval, cv, jnp.inf), axis=1)
+    t_vhi = jnp.max(jnp.where(cval, cv, -jnp.inf), axis=1)
 
-    # searchsorted as broadcast compare-sums (a per-element searchsorted
-    # lowers to log-n serial gathers on TPU — measured ~100x slower)
-    def ss_left(a, v):
-        return jnp.sum((a[None, :] < v[:, None]).astype(jnp.int32), axis=1)
-
-    def ss_right(a, v):
-        return jnp.sum((a[None, :] <= v[:, None]).astype(jnp.int32),
-                       axis=1)
-
-    jmin = jnp.clip(ss_left(col_hi, t_ulo), 0, scols - 1)
-    jmax = ss_right(col_lo, t_uhi) - 1
-    imin = jnp.clip(ss_left(row_hi, t_vlo), 0, srows - 1)
-    imax = ss_right(row_lo, t_vhi) - 1
+    jmin = jnp.clip(jnp.searchsorted(col_hi, t_ulo, side="left"),
+                    0, scols - 1)
+    jmax = jnp.searchsorted(col_lo, t_uhi, side="right") - 1
+    imin = jnp.clip(jnp.searchsorted(row_hi, t_vlo, side="left"),
+                    0, srows - 1)
+    imax = jnp.searchsorted(row_lo, t_vhi, side="right") - 1
     nw = jnp.maximum(jmax - jmin + 1, 0)
     nh = jnp.maximum(imax - imin + 1, 0)
     area = jnp.where(all_behind, 0, nw * nh)
@@ -262,8 +266,9 @@ def bin_triangles(ds: DeviceScene, origin: Array, dflat: Array,
     bins_all = jnp.concatenate([ta, tm, tc])
     tris_all = jnp.concatenate([ra, rm, rc])
     if t_real < (1 << 19):
-        # pack (bin, tri) into one int32 word and VALUE-sort — ~2x the
-        # two-operand stable sort's speed; sentinel 0x7FFFFFFF lands last
+        # pack (bin, tri) into one int32 word and sort values (one key
+        # instead of a two-operand stable sort); sentinel 0x7FFFFFFF
+        # lands last
         nbins_pk = ns + scols
         words = jnp.where(bins_all >= nbins_pk, jnp.int32(0x7FFFFFFF),
                           (bins_all << 19) | tris_all)
@@ -274,29 +279,25 @@ def bin_triangles(ds: DeviceScene, origin: Array, dflat: Array,
         sorted_bin, sorted_tri = jax.lax.sort(
             (bins_all, tris_all), dimension=0, num_keys=1, is_stable=True)
 
-    # per-bin segments (strips then columns), 128-aligned in the padded
-    # table.  nbins+1 boundary queries over the sorted pairs are few, so
-    # plain searchsorted is fine here.
+    # per-bin segments (strips then columns), SLICE-aligned in the
+    # padded table
     nbins = ns + scols
     bounds = jnp.searchsorted(sorted_bin,
                               jnp.arange(nbins + 1, dtype=jnp.int32),
                               side="left").astype(jnp.int32)
     c_i = bounds[1:] - bounds[:-1]
-    p_i = -(-c_i // SEGAL) * SEGAL
+    p_i = -(-c_i // SLICE) * SLICE
     pad_off = jnp.concatenate(
         [jnp.zeros((1,), jnp.int32), jnp.cumsum(p_i)])     # (nbins+1,)
     slots_total = bins_all.shape[0]
-    np_rows = slots_total + SEGAL * nbins + GANGW          # static bound
+    np_rows = slots_total + SLICE * (nbins + 1)            # static bound
 
-    # dest row -> source slot WITHOUT per-row gathers of small tables
-    # (those lower to serial scalar loads on TPU — measured ~100 ms):
-    # src = dest - (pad_off[bin] - bounds[bin]), a piecewise-constant
-    # shift, built by scattering per-boundary DELTAs and cumsumming.
-    # No validity mask is needed at all: a padding row's src points at
-    # the NEXT bin's entries (or a sentinel slot whose tri id is still a
-    # real triangle), and testing extra real triangles is conservative
-    # by construction (see module header) — they can only produce real
-    # closer hits the brute force would also find.
+    # dest row -> source slot: src = dest - (pad_off[bin] - bounds[bin]),
+    # a piecewise-constant shift, built by scattering per-boundary deltas
+    # and cumsumming.  No validity mask is needed: a padding row's src
+    # points at the NEXT bin's entries (or a sentinel slot whose tri id is
+    # still a real triangle), and testing extra real triangles is
+    # conservative by construction (see module header).
     bnd = pad_off[1:nbins]                   # first row of bins 1..
     def stepped(vals):                       # vals (nbins,) -> (NP,)
         base = jnp.zeros((np_rows,), jnp.int32).at[bnd].add(
@@ -305,242 +306,109 @@ def bin_triangles(ds: DeviceScene, origin: Array, dflat: Array,
     padmb = stepped(pad_off[:nbins] - bounds[:nbins])
     src = jnp.clip(jnp.arange(np_rows, dtype=jnp.int32) - padmb,
                    0, slots_total - 1)
-    tri_d = sorted_tri[src]
-    # only the intersection constants stream through the kernel; the
-    # winner's ATTRIBUTES are fetched by finish_binned with one XLA row
-    # gather of the original table, keyed by the triangle id the kernel
-    # reports — carried in spare isect row 10 (f32-exact to 2^24).
-    # IMPORTANT: gather whole 16-col rows from a pre-sliced table — a
-    # sliced gather (rows[idx, :16]) scalarizes on TPU (measured 6.5 s
-    # vs 20 ms for the row form).
-    tbl16 = rows[:, :16].at[:, 10].set(
-        jnp.arange(rows.shape[0], dtype=jnp.float32))
-    rows16 = tbl16[tri_d]                                  # (NP, 16)
-    isect_p = rows16.T                                     # (16, NP)
+    tri_p = sorted_tri[src]
 
-    gseg = -(-p_i[:ns] // GANGW)
+    nseg = p_i[:ns] // SLICE
     col_of = ns + jnp.arange(ns, dtype=jnp.int32) % scols
-    coff = pad_off[col_of]
-    gcol = -(-p_i[col_of] // GANGW)
-    scal = jnp.stack([pad_off[:ns], gseg, coff, gcol], axis=0)  # (4, ns)
-    return scal, isect_p, n_col_total
+    scal = jnp.stack([pad_off[:ns], nseg, pad_off[col_of],
+                      p_i[col_of] // SLICE], axis=0)        # (4, ns)
+    return scal, tri_p, n_col_total
 
 
-def _process(d, blk, tb_ref, id_ref, eps, tmin_eps):
-    """One 1024-wide triangle gang vs the strip's rays (the
-    raycast_pallas math, first-min winner, strict-< cross-gang ties).
-    Updates per-ray best t and winning TRIANGLE ID only — attribute
-    fetch/interpolation happens outside the kernel (finish_binned)."""
-    kk = blk[9:10, :]
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass
+class Bins:
+    """One camera's binned triangle table (bin_scene)."""
 
-    def dot3(r0):
-        # exact-f32 K=3 contraction as VPU broadcast multiply-adds: the
-        # MXU's default bf16 passes flip `valid` under the cancellation
-        # in the origin-folded constants (see raycast_pallas._kernel),
-        # and Precision.HIGHEST on a K=3 matmul measured ~6x slower than
-        # these 5 elementwise ops (r5)
-        return (d[:, 0:1] * blk[r0:r0 + 1, :]
-                + d[:, 1:2] * blk[r0 + 1:r0 + 2, :]
-                + d[:, 2:3] * blk[r0 + 2:r0 + 3, :])
-
-    det = dot3(0)
-    ud = dot3(3)
-    vd = dot3(6)
-    s = jnp.sign(det)
-    ad = jnp.abs(det)
-    sk = s * kk
-    inv = 1.0 / jnp.maximum(ad, eps)
-    sinv = s * inv
-    valid = ((ad > eps) & (s * ud >= 0) & (s * vd >= 0)
-             & (s * (ud + vd) <= ad) & (sk > tmin_eps * ad))
-    tcand = jnp.where(valid, kk * sinv, _BIG)
-
-    tmin_c = jnp.min(tcand, axis=1, keepdims=True)
-    tbest = tb_ref[...]
-    better = tmin_c < tbest
-    improved = jnp.any(better)
-
-    @pl.when(improved)
-    def _():
-        gw = tcand.shape[1]
-        lanes = jax.lax.broadcasted_iota(jnp.int32, tcand.shape, 1)
-        idx_c = jnp.min(jnp.where(tcand == tmin_c, lanes, gw),
-                        axis=1, keepdims=True)
-        onehot = ((lanes == idx_c) & (tmin_c < _BIG)).astype(jnp.float32)
-        id_c = jnp.sum(onehot * blk[10:11, :], axis=1, keepdims=True)
-        u_c = jnp.sum(onehot * (ud * sinv), axis=1, keepdims=True)
-        v_c = jnp.sum(onehot * (vd * sinv), axis=1, keepdims=True)
-        uv_c = jnp.concatenate([u_c, v_c], axis=1)
-        tb_ref[...] = jnp.where(better, tmin_c, tbest)
-        id_ref[...] = jnp.where(better,
-                                jnp.concatenate([id_c, uv_c], axis=1),
-                                id_ref[...])
+    scal: Array      # (4, ns) int32 per-strip segment offsets/lengths
+    table: Array     # (NROWS, NP) f32 intersection constants, binned
+    tri: Array       # (NP,) int32 triangle id of each table column
 
 
-def _binned_kernel(scal_ref,                  # (4, ns) prefetch
-                   dirs_ref,
-                   isect_ref,                 # ANY (16, NP) table
-                   out_ref,
-                   tb_ref, id_ref, ibuf, isem,
-                   *, eps: float, tmin_eps: float):
-    d = dirs_ref[...]                         # (STRIPE, 3)
-    i = pl.program_id(0)
-    off = scal_ref[0, i]
-    gseg = scal_ref[1, i]
-    coff = scal_ref[2, i]
-    gcol = scal_ref[3, i]
-    total = gseg + gcol
+def bin_scene(ds: DeviceScene, pc: PinholeConstants, origin: Array,
+              dflat: Array, dimg: Array) -> Bins:
+    """bin_triangles + the gathered constant table the kernel streams.
+    Depends on the camera only, so alpha re-casts reuse it."""
+    scal, tri_p, _ = bin_triangles(ds, origin, dflat, dimg)
+    tbl = jnp.concatenate([pc.a, pc.b, pc.c, pc.k[:, None]], axis=1)
+    return Bins(scal=scal, table=tbl[tri_p].T, tri=tri_p)
 
-    def base_of(p):
-        # gang p draws from the strip segment, then the column segment —
-        # ONE fused loop so the DMA pipeline never drains between tiers
-        return jnp.where(p < gseg, off + p * GANGW,
-                         coff + (p - gseg) * GANGW)
 
-    def seg_dma(p, slot):
-        base = pl.multiple_of(base_of(p), SEGAL)
-        pltpu.make_async_copy(
-            isect_ref.at[:, pl.ds(base, GANGW)], ibuf.at[slot],
-            isem.at[slot]).start()
+def _kernel(scal_ref, dirs_ref, tmin_ref, tbl_ref, tri_ref, t_ref, id_ref):
+    """One RAYS-ray block of one strip against the strip's segment, then
+    its column's: per-slice min t (ties -> lowest triangle id), carried
+    best (t, id)."""
+    s = pl.program_id(0)
+    rays = pl.ds(s * STRIPE + pl.program_id(1) * RAYS, RAYS)
+    dx = dirs_ref[0, rays][:, None]
+    dy = dirs_ref[1, rays][:, None]
+    dz = dirs_ref[2, rays][:, None]
+    tmin = tmin_ref[rays]
+    seg, nseg = scal_ref[0, s], scal_ref[1, s]
+    col, ncol = scal_ref[2, s], scal_ref[3, s]
+    # a block whose rays are all retired (tmin = +inf: the alpha re-cast's
+    # unmasked pixels) has nothing to find
+    total = jnp.where(jnp.min(tmin) == jnp.inf, 0, nseg + ncol)
+    tmin = tmin[:, None]
+    big = jnp.iinfo(jnp.int32).max
 
-    @pl.when(total > 0)
-    def _():
-        seg_dma(0, 0)
+    def body(p, carry):
+        tb, ib = carry
+        base = jnp.where(p < nseg, seg + p * SLICE,
+                         col + (p - nseg) * SLICE)
+        tris = pl.ds(pl.multiple_of(base, SLICE), SLICE)
 
-    tb_ref[...] = jnp.full((STRIPE, 1), _BIG, jnp.float32)
-    id_ref[...] = jnp.zeros((STRIPE, 3), jnp.float32)
+        def row(r):
+            return tbl_ref[r, tris][None, :]
 
-    def body(p, _):
-        slot = jax.lax.rem(p, 2)
-        # issue the NEXT gang's DMA first (its slot was last touched by
-        # iteration p-1's compute, which is already done), then wait for
-        # this gang's — both transfers overlap this iteration's compute
-        @pl.when(p + 1 < total)
-        def _():
-            seg_dma(p + 1, 1 - slot)
-        pltpu.make_async_copy(ibuf.at[slot], ibuf.at[slot],
-                              isem.at[slot]).wait()
-        _process(d, ibuf[slot], tb_ref, id_ref, eps, tmin_eps)
-        return 0
+        # exact-f32 K=3 contractions as multiply-adds (a dot could run in
+        # TF32 and flip `valid` under the cancellation in the
+        # origin-folded constants)
+        def dot3(r):
+            return dx * row(r) + dy * row(r + 1) + dz * row(r + 2)
 
-    jax.lax.fori_loop(0, total, body, 0)
-    tb = tb_ref[...]
-    hit = (tb < _BIG).astype(jnp.float32)
-    out_ref[...] = jnp.concatenate(
-        [tb, id_ref[...], hit, jnp.zeros((STRIPE, 3), jnp.float32)],
-        axis=1)
+        det = dot3(0)
+        ud = dot3(3)
+        vd = dot3(6)
+        kk = row(9)
+        sg = jnp.sign(det)
+        ad = jnp.abs(det)
+        tval = (sg * kk) / jnp.maximum(ad, EPS)
+        valid = ((ad > EPS) & (sg * ud >= 0) & (sg * vd >= 0)
+                 & (sg * (ud + vd) <= ad) & (sg * kk > TMIN_EPS * ad)
+                 & (tval > tmin))
+        tc = jnp.where(valid, tval, jnp.inf)
+        tm = jnp.min(tc, axis=1)
+        im = jnp.min(jnp.where(tc == tm[:, None], tri_ref[tris][None, :],
+                               big), axis=1)
+        better = (tm < tb) | ((tm == tb) & (im < ib))
+        return jnp.where(better, tm, tb), jnp.where(better, im, ib)
+
+    tb, ib = jax.lax.fori_loop(
+        0, total, body, (jnp.full((RAYS,), jnp.inf, jnp.float32),
+                         jnp.full((RAYS,), big, jnp.int32)))
+    t_ref[rays] = tb
+    id_ref[rays] = jnp.where(tb < jnp.inf, ib, 0)
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
-def raycast_binned(dflat: Array, scal: Array, isect_p: Array,
-                   interpret: bool = False) -> Array:
-    """Binned raster-style closest hit: (ns*STRIPE, 3) rays ->
-    (ns*STRIPE, 8) per-ray [t, winner tri id, u, v, hit, 0...].  Inputs
-    from bin_triangles.  Feed to finish_binned for the full (n, NOUT)
-    G-buffer."""
+def raycast_binned(bins: Bins, dflat: Array, tmin: Array,
+                   interpret: bool = False) -> Tuple[Array, Array]:
+    """Closest hit of (n, 3) strip-ordered rays from the binned table:
+    (t (n,) with +inf on a miss, tri (n,) int32, 0 on a miss).  Only hits
+    with t > tmin (n,) count; tmin = +inf retires a ray."""
     n = dflat.shape[0]
-    assert n % STRIPE == 0, n
+    assert n % STRIPE == 0 and STRIPE % RAYS == 0, n
     ns = n // STRIPE
-    assert scal.shape == (4, ns), scal.shape
-    kern = functools.partial(_binned_kernel, eps=1e-7, tmin_eps=1e-4)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(ns,),
-        in_specs=[
-            pl.BlockSpec((STRIPE, 3), lambda i, s: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY),       # isect_p
-        ],
-        out_specs=pl.BlockSpec((STRIPE, 8), lambda i, s: (i, 0),
-                               memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((STRIPE, 1), jnp.float32),
-            pltpu.VMEM((STRIPE, 3), jnp.float32),
-            pltpu.VMEM((2, 16, GANGW), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    return pl.pallas_call(
-        kern,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n, 8), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
+    assert bins.scal.shape == (4, ns), bins.scal.shape
+    t, tri = pl.pallas_call(
+        _kernel,
+        grid=(ns, STRIPE // RAYS),
+        out_shape=(jax.ShapeDtypeStruct((n,), jnp.float32),
+                   jax.ShapeDtypeStruct((n,), jnp.int32)),
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
         interpret=interpret,
-    )(scal, dflat, isect_p)
-
-
-def finish_binned(dflat: Array, origin: Array, out8: Array,
-                  rows: Array) -> Array:
-    """XLA tail: winner ids -> interpolated (n, NOUT) G-buffer
-    (raycast_gbuf24 layout).  One attribute-row gather per ray
-    (row-major throughout — a transposed-layout variant measured the
-    same speed but doubled transient HBM with two (48, n) copies)."""
-    n = dflat.shape[0]
-    ts_raw = out8[:, 0:1]
-    hit = out8[:, 4:5] > 0.5
-    tri = jnp.clip(out8[:, 1].astype(jnp.int32), 0, rows.shape[0] - 1)
-    attr_tbl = rows[:, 16:16 + NATTR]
-    at = attr_tbl[tri] * hit                               # (n, NATTR)
-    uu = out8[:, 2:3] * hit
-    vv = out8[:, 3:4] * hit
-    w0 = 1.0 - uu - vv
-    vn = at[:, 0:9]
-    vt = at[:, 9:18]
-    vb = at[:, 18:27]
-    vuv = at[:, 27:33]
-    fn = at[:, 33:36]
-    mat = at[:, 36:37]
-    alb = at[:, 37:41]
-    spec = at[:, 41:44]
-    shin = at[:, 44:45]
-
-    def interp3(a9):
-        return w0 * a9[:, 0:3] + uu * a9[:, 3:6] + vv * a9[:, 6:9]
-
-    normal = interp3(vn)
-    nrm = jax.lax.rsqrt(jnp.maximum(
-        jnp.sum(normal * normal, axis=1, keepdims=True), 1e-24))
-    normal = normal * nrm
-    tangent = interp3(vt)
-    bitan = interp3(vb)
-    uv = w0 * vuv[:, 0:2] + uu * vuv[:, 2:4] + vv * vuv[:, 4:6]
-    ts = jnp.where(hit, ts_raw, 0.0)
-    pos = origin[None, :] + ts * dflat
-    return jnp.concatenate([
-        pos, normal, fn, tangent, bitan, uv, mat, ts,
-        hit.astype(jnp.float32), alb, spec, shin,
-        jnp.zeros((n, NOUT - 28), jnp.float32),
-    ], axis=1)
-
-
-def scene_tfar(ds: DeviceScene, origin: Array, dflat: Array) -> Array:
-    """Per-ray scene-AABB exit distance (the miss sentinel)."""
-    lo = jnp.minimum(jnp.minimum(
-        jnp.min(ds.v0, axis=0), jnp.min(ds.v0 + ds.e1, axis=0)),
-        jnp.min(ds.v0 + ds.e2, axis=0)) - origin
-    hi = jnp.maximum(jnp.maximum(
-        jnp.max(ds.v0, axis=0), jnp.max(ds.v0 + ds.e1, axis=0)),
-        jnp.max(ds.v0 + ds.e2, axis=0)) - origin
-    dinv = 1.0 / jnp.where(jnp.abs(dflat) < 1e-12,
-                           jnp.float32(1e-12), dflat)
-    ta = lo[None, :] * dinv
-    tb = hi[None, :] * dinv
-    return jnp.maximum(jnp.min(jnp.maximum(ta, tb), axis=1),
-                       0.0)[:, None]
-
-
-def raycast_pinhole_binned(ds: DeviceScene, origin: Array, dflat: Array,
-                           dimg: Array,
-                           albedo: Optional[Array] = None,
-                           specular: Optional[Array] = None,
-                           shininess: Optional[Array] = None,
-                           interpret: bool = False) -> Array:
-    """Full binned pipeline: pack + bin + kernel -> (n, NOUT) G-buffer.
-
-    dflat must be the tile-major flattening of dimg's rays (the layout
-    render/fast.py produces); all rays share `origin`."""
-    rows, _ = pack_rows(ds, origin, albedo, specular, shininess)
-    scal, isect_p, _ = bin_triangles(ds, origin, dflat, dimg, rows)
-    out8 = raycast_binned(dflat, scal, isect_p, interpret=interpret)
-    return finish_binned(dflat, origin, out8, rows)
+        name="binned_raycast",
+    )(bins.scal, dflat.T, tmin, bins.table, bins.tri)
+    return jax.lax.stop_gradient(t), tri

@@ -7,8 +7,8 @@ Axes:
           also used to shard voxelization surface samples
 
 Multi-host: jax.distributed.initialize() before calling make_mesh; the mesh
-spans all processes' devices and XLA routes collectives over ICI within a
-slice and DCN across slices.  There is no hand-written transport layer —
+spans all processes' devices and XLA hands collectives to NCCL (NVLink
+within a host).  There is no hand-written transport layer —
 the reference has none either (single GPU); scaling is mesh + shardings.
 """
 
@@ -54,8 +54,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
     """Multi-host entry: initialize the JAX coordination service.
 
     Call once per process before make_mesh*; afterwards jax.devices()
-    spans every host's chips and the mesh/collectives ride ICI within a
-    slice and DCN across slices (SURVEY.md §2.4 comm-backend row).
+    spans every host's devices and the mesh/collectives go through NCCL
+    (SURVEY.md §2.4 comm-backend row).
 
     Args default from the standard env vars (COORDINATOR_ADDRESS,
     NUM_PROCESSES, PROCESS_ID) when omitted; on single-process runs with

@@ -1,482 +1,126 @@
-"""The TPU fast frame path: Pallas raycast + tiled deferred shading taps.
+"""The GPU camera pass: binned primary visibility + XLA deferred shading.
 
-Assembles the interactive camera pass (VERDICT.md round-1 item 1) from:
+  1. pad the frame to whole 16x64-pixel strips and put each strip's rays
+     together (ops/binrast_pallas.strip_order);
+  2. bin the scene's triangles to the strips and find every pixel's
+     closest hit with the Pallas-Triton kernel (ops/binrast_pallas);
+  3. alpha-mask see-through (fs:169-172 `discard`): re-cast the rays whose
+     hit samples albedo alpha below the threshold, past that hit, with the
+     same kernel and binning (renderer.alpha_mask_recast);
+  4. renderer.shade_gbuffer (VoxelConeTracing.fs:165-228) over pixel
+     chunks, as renderer.render_rays does, so shading intermediates at
+     1080p stay chunk-sized.
 
-  1. ops/raycast_pallas.py — pinhole closest-hit + G-buffer in VMEM
-  2. an XLA prepass selecting, per 16x16 image tile, the mip level + brick
-     origin covering the tile's tap points (ops/tap_pallas.select_bricks)
-  3. ops/tap_pallas.py — per-tile brick DMA + MXU trilinear taps for the
-     shadow volume and the fused diffuse+specular cone fields
-  4. ops/material_pallas.py — per-tile atlas-mip-brick DMA + MXU bilinear
-     for albedo/specular/bump heights (replacing the 139 ms/frame XLA
-     per-pixel gather, VERDICT r3 weak #1) — or zero fetches for
-     flat-colored scenes (material constants ride the raycast kernel's
-     one-hot matmul)
-  5. shading.combine (VoxelConeTracing.fs:165-228) and image untiling.
-
-Semantics vs the reference path (renderer.render_rays at shadow.mode=
-"volume", cones *_mode="field"): identical math except (a) fields/volumes
-are sampled at a per-tile mip level when a tile's footprint exceeds one
-brick at level 0 (the same footprint->lod rule the cone march uses), and
-(b) the field brick matmul runs in bfloat16.  tests/test_fast.py bounds
-the end-to-end difference.
-
-Requires cfg.shadow.mode == "volume", cones.diffuse_mode == "field" and
-specular field-or-off; renderer paths remain for everything else.
+Every config runs here: shade_gbuffer handles map/volume/percone shadows,
+field and per-cone GI and anisotropic mips.  The image equals
+render_rays' up to closest-hit ties at equal t.  Only the raycast is a
+kernel; gradients w.r.t. materials, light and radiance flow through the
+XLA shading exactly as in render_rays.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import functools
-import os
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from vct_tpu.config import VCTConfig
-from vct_tpu.core import cones as C
-from vct_tpu.core import dense as D
-from vct_tpu.core import grid as G
 from vct_tpu.ops import binrast_pallas as BR
-from vct_tpu.ops import material_pallas as MP
-from vct_tpu.ops import prepass_pallas as PP
-from vct_tpu.ops import raycast_pallas as RP
-from vct_tpu.ops import specmarch_pallas as SP
-from vct_tpu.ops import tap_pallas as TP
-from vct_tpu.render import shading
-from vct_tpu.render.gbuffer import DeviceScene
-from vct_tpu.render.renderer import MaterialTable, VoxelState
-from vct_tpu.scene import textures as TX
+from vct_tpu.render.gbuffer import (DeviceScene, hits_to_gbuffer,
+                                    pinhole_constants)
+from vct_tpu.render.renderer import (MaterialTable, VoxelState,
+                                     alpha_mask_recast, light_direction,
+                                     shade_gbuffer)
 
 Array = jax.Array
 
-TSY = 16  # image tile rows
-TSX = 16  # image tile cols; TSY*TSX = pixels per tap-kernel tile (the
-          # kernel is per-step-overhead-bound, so wider tiles amortize it;
-          # footprint-driven level selection keeps taps correct either way)
-TS = TSY  # back-compat alias (row padding granularity)
+
+def _strip_rays(dirs: Array):
+    """(H, W, 3) rays -> (padded image (hp, wp, 3), strip-ordered (n, 3))."""
+    h, w = dirs.shape[:2]
+    hp = -(-h // BR.STRIP_H) * BR.STRIP_H
+    wp = -(-w // BR.STRIP_W) * BR.STRIP_W
+    dimg = jnp.pad(dirs, ((0, hp - h), (0, wp - w), (0, 0)), mode="edge")
+    return dimg, BR.strip_order(dimg)
 
 
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass
-class FrameTables:
-    """Per-voxel-state tables the fast path samples from."""
-
-    light_mips: Tuple[Array, ...]        # each (D, max(D,32), D) bf16
-    field_mips: Tuple[Array, ...]        # each (D, D, max(D,32), C) bf16
-    atlas_pages: Optional[Array]         # material_pallas packed mip pages
-    spec_mips: Optional[Array]           # specmarch_pallas packed radiance
-
-
-def supported(cfg: VCTConfig) -> bool:
-    """Does this config route through the fast path?
-
-    Specular runs either through the basis field ("field") or the exact
-    per-pixel cone-march kernel ("percone", isotropic mips only —
-    ops/specmarch_pallas.py)."""
-    spec_ok = (not cfg.cones.trace_specular
-               or cfg.cones.specular_mode == "field"
-               or (cfg.cones.specular_mode == "percone"
-                   and not cfg.grid.anisotropic))
-    return (cfg.shadow.mode == "volume"
-            and cfg.cones.diffuse_mode == "field" and spec_ok)
-
-
-def _spec_percone(cfg: VCTConfig) -> bool:
-    return (cfg.cones.trace_specular
-            and cfg.cones.specular_mode == "percone")
-
-
-def _morton3(q: Array) -> Array:
-    """(N, 3) int cell coords (7 bits each) -> interleaved Morton key."""
-    def part(x):
-        x = x & 0x7F
-        x = (x | (x << 8)) & 0x0300F00F
-        x = (x | (x << 4)) & 0x030C30C3
-        x = (x | (x << 2)) & 0x09249249
-        return x
-    return (part(q[:, 0]) << 2) | (part(q[:, 1]) << 1) | part(q[:, 2])
-
-
-def spec_percone_pass(cfg: VCTConfig, spec_mips, pos: Array, nrm: Array,
-                      shade_normal: Array, eye: Array, hit: Array,
-                      interpret: bool = False, tile: int = 256) -> Array:
-    """The exact per-pixel specular cone march (ops/specmarch_pallas)
-    over CONTENT-CLUSTERED pixel groups -> (N, 4) [rgb, occlusion].
-
-    The kernel picks one mip brick per (256-pixel group, step group), so
-    group coherence decides fidelity.  SCREEN tiles span depth
-    discontinuities (measured: only 20% of selections stayed at their
-    schedule level on the atrium, rel-RMS 0.55); sorting pixels by the
-    Morton code of their march start (2-unit cells) + reflection octant
-    makes groups world-space-compact, where the march's own lod growth
-    matches the cone spread and selections stay exact."""
-    n = pos.shape[0]
-    ws = cfg.grid.world_size
-    voxel = cfg.grid.voxel_world_size
-    refl = shading.reflect_eye(shade_normal, eye)
-    start = pos + nrm * voxel
-
-    cell = jnp.clip((start + ws * 0.5) * (2.0 / ws) * 64.0,
-                    0.0, 127.0).astype(jnp.int32)     # 128^3 Morton cells
-    octant = ((refl[:, 0] > 0).astype(jnp.int32)
-              + 2 * (refl[:, 1] > 0).astype(jnp.int32)
-              + 4 * (refl[:, 2] > 0).astype(jnp.int32))
-    key = (_morton3(cell) << 3) | octant
-    key = jnp.where(hit, key, jnp.int32(2 ** 30))     # miss pixels last
-    perm = jnp.argsort(key)
-
-    start_p = jnp.take(start, perm, axis=0)
-    refl_p = jnp.take(refl, perm, axis=0)
-    hit_p = jnp.take(hit, perm, axis=0)
-
-    dims = SP.pages_dims(spec_mips)
-    sched = shading.specular_schedule(cfg)
-    groups = SP.plan_groups(sched, len(dims))
-    ntiles = n // tile
-    def tiled(x):
-        return x.reshape((ntiles, tile) + x.shape[1:])
-    slists, rowtab = SP.select_spec_bricks(
-        tiled(start_p), tiled(refl_p), tiled(hit_p), groups, dims, ws,
-        occlusion_falloff=cfg.cones.occlusion_falloff)
-    start4 = jnp.concatenate(
-        [start_p, hit_p.astype(jnp.float32)[:, None]], axis=1)
-    refl4 = jnp.concatenate(
-        [refl_p, jnp.zeros((n, 1), jnp.float32)], axis=1)
-    so = SP.spec_march_tiles(
-        start4, refl4, slists, rowtab, spec_mips, groups=groups,
-        dims=dims, world_size=ws, max_alpha=cfg.cones.max_alpha,
-        occlusion_falloff=cfg.cones.occlusion_falloff,
-        interpret=interpret, tile=tile)
-    inv = jnp.zeros((n,), jnp.int32).at[perm].set(
-        jnp.arange(n, dtype=jnp.int32))
-    return jnp.take(so, inv, axis=0)
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def raycast_image(ds: DeviceScene, origins: Array, dirs: Array,
+                  interpret: bool = False):
+    """The camera pass's primary visibility alone: closest hits of the
+    (H, W) camera rays as (t (H, W), +inf on a miss; tri (H, W) int32)."""
+    h, w = dirs.shape[:2]
+    dimg, d = _strip_rays(dirs)
+    origin = origins.reshape(-1, 3)[0]
+    bins = BR.bin_scene(ds, pinhole_constants(ds, origin), origin, d, dimg)
+    t, tri = BR.raycast_binned(bins, d, jnp.zeros((d.shape[0],), jnp.float32),
+                               interpret=interpret)
+    hp, wp = dimg.shape[:2]
+    return (BR.strip_unorder(t, hp, wp)[:h, :w],
+            BR.strip_unorder(tri, hp, wp)[:h, :w])
 
 
 @functools.partial(jax.jit, static_argnums=0,
-                   static_argnames=("interpret",))
-def alpha_resolve(cfg: VCTConfig, ds: DeviceScene, mats: MaterialTable,
-                  g: Array, d: Array, origin: Array,
-                  interpret: bool = False) -> Array:
-    """Alpha-mask SEE-THROUGH for the fast path (fs:169-172 `discard`):
-    hits whose sampled albedo alpha < threshold re-cast past the masked
-    surface so the geometry BEHIND it shades (reference `discard` +
-    depth test; README.md:13 "Alpha Textures").
-
-    Budget-bounded: per iteration, up to cfg.render.alpha_mask_budget
-    candidate pixels (hit pixels of materials with any masked texel)
-    gather into a fixed-size subset; the subset samples the atlas alpha
-    (an XLA gather — cheap at subset size) and masked rays re-enter the
-    STREAMED raycast kernel with per-ray tmin just past their masked hit.
-    Overflow pixels and masked stacks deeper than alpha_mask_depth keep
-    the background fallback (conservative, documented deviation).  The
-    whole resolve sits under a lax.cond on "any candidate at all", so
-    mask-free frames skip the table packing and the kernel entirely."""
-    from vct_tpu.scene import textures as TXS
-
-    thresh = cfg.render.alpha_threshold
-    n = g.shape[0]
-    budget = min(cfg.render.alpha_mask_budget, n)
-    budget = -(-budget // RP.TILE) * RP.TILE
-    # per-material "can mask at all" flag (tiny reduction over the atlas)
-    maskable = jnp.any(mats.atlas.albedo[..., 3] < thresh, axis=(1, 2))
-
-    def candidates(g):
-        mat = g[:, 17].astype(jnp.int32)
-        hit = g[:, 19] > 0.5
-        return hit & maskable[mat]
-
-    def one_pass(g):
-        isect, attrsT, spheres, _ = RP.pack_tables_stream(
-            ds, origin, mats.albedo, mats.specular, mats.shininess)
-        cand = candidates(g)
-        (idx,) = jnp.nonzero(cand, size=budget, fill_value=0)
-        valid = jax.lax.broadcasted_iota(
-            jnp.int32, (budget,), 0) < jnp.sum(cand)
-        rows = g[idx]
-        alpha = TXS.sample_atlas(mats.atlas.albedo,
-                                 rows[:, 17].astype(jnp.int32),
-                                 rows[:, 15:17])[:, 3]
-        masked = valid & (alpha < thresh)
-        # sort the subset by DIRECTION so each 256-ray kernel tile has a
-        # tight bounding cone — image-order gathered rays span the whole
-        # frame and degrade the per-tile chunk culling to keep-all
-        # (measured ~3x the resolve cost at 287k tris)
-        d_sub = d[idx]
-        q = jnp.clip((d_sub + 1.0) * 15.999, 0.0, 31.0).astype(jnp.int32)
-        key = (q[:, 0] << 10) | (q[:, 1] << 5) | q[:, 2]
-        order = jnp.argsort(jnp.where(masked, key, jnp.int32(2 ** 30)))
-        idx = idx[order]
-        masked = masked[order]
-        d_sub = d_sub[order]
-        tmin = jnp.where(masked,
-                         rows[:, 18][order] * (1.0 + 1e-5) + 1e-4,
-                         jnp.float32(3.0e38))[:, None]
-        nrt = budget // RP.TILE
-        lists, counts = RP.select_chunks(
-            d_sub.reshape(nrt, RP.TILE, 3), spheres)
-        g_sub = RP.raycast_stream(d_sub, origin, isect, attrsT, lists,
-                                  counts, spheres, interpret=interpret,
-                                  tmin=tmin)
-        # scatter only the masked rows; the n sentinel drops padding
-        # duplicates (nonzero's fill rows alias index 0, and .set
-        # with conflicting duplicate writes is unordered)
-        safe = jnp.where(masked, idx, n)
-        g = g.at[safe].set(g_sub, mode="drop")
-        # another pass is needed only when a re-cast ray LANDED on a
-        # maskable material again (a stacked mask candidate)
-        again = jnp.any(masked & (g_sub[:, 19] > 0.5)
-                        & maskable[g_sub[:, 17].astype(jnp.int32)])
-        return g, again
-
-    flag = jnp.any(candidates(g))
-    for _ in range(cfg.render.alpha_mask_depth):
-        # mask-free frames (and iterations past the deepest masked
-        # stack) skip the table packing + kernel entirely
-        g, flag = jax.lax.cond(flag, one_pass,
-                               lambda g: (g, jnp.bool_(False)), g)
-    return g
-
-
-def _mips_to(vol: Array, floor_dim: int) -> Tuple[Array, ...]:
-    d = vol.shape[0]
-    n = int(np.log2(d // floor_dim)) + 1
-    return G.build_mips(vol, num_levels=n)
-
-
-@functools.partial(jax.jit, static_argnums=0)
-def build_frame_tables(cfg: VCTConfig, voxels: VoxelState,
-                       mats: MaterialTable) -> FrameTables:
-    """Light-transmittance mips + fused field mips + packed atlas.
-
-    Coarsest level equals the tap brick (8^3) so every tile fits some level.
-    """
-    assert supported(cfg), "fast path needs volume shadows + field cones"
-    light_mips = TP.pack_light_mips(
-        [m[..., 0] for m in _mips_to(voxels.light_volume, TP.BRICK_L)])
-    fields = [voxels.diffuse_field]
-    # include the specular field only when THIS config samples it — a
-    # VoxelState built under a field-specular config can feed an
-    # exact-specular (percone) frame without dragging its field along
-    if (cfg.cones.trace_specular and cfg.cones.specular_mode == "field"):
-        assert voxels.specular_field is not None, (
-            "specular_mode='field' needs a VoxelState built with the "
-            "specular field")
-        fields.append(voxels.specular_field)
-    fused = jnp.concatenate(fields, axis=-1)
-    field_mips = TP.pack_field_mips(_mips_to(fused, TP.BRICK_F))
-    pages = (MP.atlas_mip_pages(mats.atlas.albedo, mats.atlas.specular,
-                                mats.atlas.height)
-             if mats.atlas is not None else None)
-    spec_mips = (SP.pack_spec_mips(voxels.radiance_mips)
-                 if _spec_percone(cfg) else None)
-    return FrameTables(light_mips=light_mips, field_mips=field_mips,
-                       atlas_pages=pages, spec_mips=spec_mips)
-
-
-def _tile_order(img: Array, hp: int, wp: int) -> Array:
-    """(H', W', ...) -> tile-major (ntiles*TSY*TSX, ...)."""
-    c = img.shape[2:]
-    x = img.reshape((hp // TSY, TSY, wp // TSX, TSX) + c)
-    x = jnp.moveaxis(x, 2, 1)
-    return x.reshape((hp // TSY * (wp // TSX) * TSY * TSX,) + c)
-
-
-def _untile(flat: Array, hp: int, wp: int) -> Array:
-    c = flat.shape[1:]
-    x = flat.reshape((hp // TSY, wp // TSX, TSY, TSX) + c)
-    x = jnp.moveaxis(x, 2, 1)
-    return x.reshape((hp, wp) + c)
-
-
-def _cones_static(cfg: VCTConfig):
-    k = cfg.cones.num_diffuse_cones
-    return (
-        tuple(map(tuple, np.asarray(C.CONE_DIRECTIONS[:k], np.float32))),
-        tuple(float(w) for w in C.CONE_WEIGHTS[:k]),
-        tuple(map(tuple, D.direction_basis(cfg.cones.field_basis))),
-    )
-
-
+                   static_argnames=("chunk_size", "interpret"))
 def render_frame(cfg: VCTConfig,
                  ds: DeviceScene,
-                 tables: FrameTables,
+                 voxels: VoxelState,
                  mats: MaterialTable,
                  origins: Array,             # (H, W, 3) camera rays
                  dirs: Array,                # (H, W, 3)
                  camera_position: Array,     # (3,)
                  light_dir: Optional[Array] = None,
+                 chunk_size: int = 16384,
                  interpret: bool = False) -> Array:
-    """Full camera pass -> (H, W, 3) linear RGB.
-
-    A thin orchestrator over two jitted stages (raycast -> shade): one
-    fused program's temp plan exceeded the TPU backend's per-executable
-    arena once the binned raycast tables and the 256^3 frame tables
-    coexisted (r5)."""
+    """Full camera pass -> (H, W, 3) linear RGB."""
     h, w = dirs.shape[:2]
-    hp = -(-h // TSY) * TSY
-    wp = -(-w // 64) * 64
     if light_dir is None:
-        light_dir = jnp.asarray(cfg.light.direction, jnp.float32)
-        light_dir = light_dir / jnp.linalg.norm(light_dir)
+        light_dir = light_direction(cfg)
     origin = origins.reshape(-1, 3)[0]
+    dimg, d = _strip_rays(dirs)
+    hp, wp = dimg.shape[:2]
+    n = d.shape[0]
 
-    # 1. raycast — whole-table VMEM kernel for small scenes; at Sponza
-    # scale the raster-style BINNED kernel (ops/binrast_pallas: screen-
-    # space triangle binning, per-strip segments — 139 ms vs the r4
-    # streamed chunk-culled kernel's 216 ms at 287k tris/1080p, measured
-    # r5).  VCT_RAYCAST=stream selects the r4 streamed path.
-    if ds.v0.shape[0] <= 2 * RP.TCHUNK:
-        raycast = _raycast_small
-    elif os.environ.get("VCT_RAYCAST") == "stream":
-        raycast = _raycast_streamed
-    else:
-        raycast = _raycast_binned_stage
-    g, d = raycast(ds, mats, dirs, origin, interpret=interpret)
-    # 1b. alpha-mask see-through (fs:169-172 `discard`): re-cast masked
-    # hits so the surface BEHIND a masked texel renders, not the background
-    if mats.atlas is not None and cfg.render.alpha_mask_depth > 0:
-        g = alpha_resolve(cfg, ds, mats, g, d, origin, interpret=interpret)
-    return _shade(cfg, tables, mats, g, d, origin, camera_position,
-                  light_dir, (h, w, hp, wp), interpret=interpret)
+    pc = pinhole_constants(ds, origin)
+    bins = BR.bin_scene(ds, pc, origin, d, dimg)
 
+    def trace(tmin):
+        return BR.raycast_binned(bins, d, tmin, interpret=interpret)
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _raycast_small(ds, mats, dirs, origin, interpret=False):
-    h, w = dirs.shape[:2]
-    hp = -(-h // TSY) * TSY
-    wp = -(-w // 64) * 64
-    dimg = jnp.pad(dirs, ((0, hp - h), (0, wp - w), (0, 0)), mode="edge")
-    d = _tile_order(dimg, hp, wp)
-    isect, attrs, _ = RP.pack_tables(ds, origin, mats.albedo,
-                                     mats.specular, mats.shininess)
-    return RP.raycast_gbuf24(d, origin, isect, attrs,
-                             interpret=interpret), d
+    t, tri = trace(jnp.zeros((n,), jnp.float32))
+    t, tri = alpha_mask_recast(
+        cfg, mats, lambda t_, i_: hits_to_gbuffer(ds, pc, origin, d, t_, i_),
+        trace, t, tri)
+
+    rgb = shade_hits(cfg, ds, pc, voxels, mats, origin, d, t, tri,
+                     camera_position, light_dir, chunk_size)
+    return BR.strip_unorder(rgb, hp, wp)[:h, :w]
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _raycast_streamed(ds, mats, dirs, origin, interpret=False):
-    h, w = dirs.shape[:2]
-    hp = -(-h // TSY) * TSY
-    wp = -(-w // 64) * 64
-    dimg = jnp.pad(dirs, ((0, hp - h), (0, wp - w), (0, 0)), mode="edge")
-    d = _tile_order(dimg, hp, wp)
-    isect, attrsT, spheres, _ = RP.pack_tables_stream(
-        ds, origin, mats.albedo, mats.specular, mats.shininess)
-    nrt = d.shape[0] // RP.TILE
-    lists, counts = RP.select_chunks(d.reshape(nrt, RP.TILE, 3), spheres)
-    return RP.raycast_stream(d, origin, isect, attrsT, lists, counts,
-                             spheres, interpret=interpret), d
+def shade_hits(cfg: VCTConfig, ds: DeviceScene, pc, voxels: VoxelState,
+               mats: MaterialTable, origin: Array, d: Array, t: Array,
+               tri: Array, camera_position: Array, light_dir: Array,
+               chunk_size: int = 16384) -> Array:
+    """renderer.shade_gbuffer over (n, 3) same-origin rays and their
+    closest hits (t (n,), +inf on a miss; tri (n,)), in chunks of
+    chunk_size pixels -> (n, 3) linear RGB."""
+    n = d.shape[0]
+    chunk = min(chunk_size, n)
+    pad = (-n) % chunk
+    if pad:
+        d = jnp.concatenate([d, jnp.broadcast_to(d[:1], (pad, 3))])
+        t = jnp.concatenate([t, jnp.full((pad,), jnp.inf, t.dtype)])
+        tri = jnp.concatenate([tri, jnp.zeros((pad,), tri.dtype)])
 
+    def shade_chunk(args):
+        dc, tc, ic = args
+        g = hits_to_gbuffer(ds, pc, origin, dc, tc, ic)
+        return shade_gbuffer(cfg, voxels, g, mats, camera_position,
+                             light_dir)
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def _raycast_binned_stage(ds, mats, dirs, origin, interpret=False):
-    h, w = dirs.shape[:2]
-    hp = -(-h // TSY) * TSY
-    wp = -(-w // 64) * 64
-    dimg = jnp.pad(dirs, ((0, hp - h), (0, wp - w), (0, 0)), mode="edge")
-    d = _tile_order(dimg, hp, wp)
-    return BR.raycast_pinhole_binned(
-        ds, origin, d, dimg, mats.albedo, mats.specular, mats.shininess,
-        interpret=interpret), d
-
-
-@functools.partial(jax.jit, static_argnums=(0, 8),
-                   static_argnames=("interpret",))
-def _shade(cfg: VCTConfig, tables: FrameTables, mats: MaterialTable,
-           g: Array, d: Array, origin: Array, camera_position: Array,
-           light_dir: Array, hw, interpret: bool = False) -> Array:
-    h, w, hp, wp = hw
-
-    # 2. fused per-tile prepass: light/field brick selection + per-material
-    # atlas entries + per-pixel material slots, one Pallas pass over the
-    # G-buffer (ops/prepass_pallas.py — the XLA selects measured 75 ms)
-    tile = TSY * TSX
-    ntiles = g.shape[0] // tile
-    voxel = cfg.grid.voxel_world_size
-    ws = cfg.grid.world_size
-    pos = g[:, 0:3]
-    nrm = g[:, 3:6]
-    hit = g[:, 19] > 0.5
-    light_dims = tuple(m.shape[0] for m in tables.light_mips)
-    field_dims = tuple(m.shape[0] for m in tables.field_mips)
-    has_atlas = tables.atlas_pages is not None
-    if has_atlas:
-        res = MP.pages_resolution(tables.atlas_pages)
-        import numpy as _np
-        nm = tables.atlas_pages.shape[0]
-        nlv = int(_np.log2(res)) + 1
-    else:
-        res, nm, nlv = 16, 1, 1
-    scal, mscal, mlists, mslots = PP.prepass_tiles(
-        g, light_dims=light_dims, field_dims=field_dims,
-        num_materials=nm, resolution=res, atlas_levels=nlv, voxel=voxel,
-        world_size=ws, shadow_offset=cfg.shadow.normal_offset,
-        has_atlas=has_atlas, interpret=interpret, tile=tile)
-
-    # 3. material fetch (tile-coherent atlas-brick kernel) + bump normal —
-    # BEFORE the taps, so the per-pixel basis weights (which need the bump
-    # normal for the specular reflection dir) ride the tap kernel as inputs
-    if has_atlas:
-        mout = MP.material_tiles(
-            g, mslots, mscal, mlists, tables.atlas_pages,
-            resolution=res, interpret=interpret, tile=tile)
-        albedo4 = mout[:, 0:4]
-        spec = mout[:, 4:7]
-        shade_normal = TX.bump_normal_from_heights(
-            mout[:, 7], mout[:, 8], mout[:, 9], g[:, 9:12], g[:, 12:15],
-            nrm)
-    else:
-        albedo4 = g[:, 20:24]
-        spec = g[:, 24:27]
-        shade_normal = nrm
-    spec = shading.spec_gray_fallback(spec)
-    eye = shading.C.normalize(camera_position - pos)
-    nb = cfg.cones.field_basis
-
-    # 4. taps: shadow + basis-weighted diffuse (+ specular in field
-    # mode), one kernel pass; the bump normal ships as its own narrow
-    # input (the specular reflection axis is formed in-kernel)
-    bumpn = jnp.concatenate(
-        [shade_normal, jnp.zeros((g.shape[0], 1), jnp.float32)], axis=1)
-    spec_field = (cfg.cones.trace_specular
-                  and cfg.cones.specular_mode == "field")
-    cfield = 4 * nb * (2 if spec_field else 1)
-    taps = TP.tap_tiles(
-        g, scal, bumpn, camera_position, tables.light_mips,
-        tables.field_mips,
-        cfield=cfield, nb=nb, world_size=ws, voxel=voxel,
-        shadow_offset=cfg.shadow.normal_offset,
-        power_diffuse=int(cfg.cones.basis_power_diffuse),
-        power_specular=int(cfg.cones.basis_power_specular),
-        cones_static=_cones_static(cfg), interpret=interpret, tile=tile)
-    shadow = taps[:, 0]
-    ind_d_rgb = taps[:, 1:4]
-    ind_d_occ = taps[:, 4]
-    ind_s_rgb = taps[:, 5:8]
-    ind_s_occ = taps[:, 8]
-
-    # 4b. exact per-pixel specular cone march (specular_mode="percone"):
-    # reflect(-E, N_bump) through the radiance pyramid, over Morton-
-    # clustered pixel groups (ops/specmarch_pallas.py; fs:217-223)
-    if _spec_percone(cfg):
-        so = spec_percone_pass(cfg, tables.spec_mips, pos, nrm,
-                               shade_normal, eye, hit,
-                               interpret=interpret, tile=tile)
-        ind_s_rgb = so[:, 0:3]
-        ind_s_occ = so[:, 3]
-
-    # 5. combine + background + untile
-    rgb = shading.combine(
-        cfg, albedo=albedo4[:, :3], spec_color=spec, normal=shade_normal,
-        light_dir=light_dir, eye_dir=eye, shadow=shadow,
-        ind_diffuse_rgb=ind_d_rgb, ind_diffuse_occ=ind_d_occ,
-        ind_spec_rgb=ind_s_rgb, ind_spec_occ=ind_s_occ,
-        shininess=g[:, 27])
-    bg = jnp.asarray(cfg.render.background, rgb.dtype)
-    visible = hit & (albedo4[:, 3] >= cfg.render.alpha_threshold)
-    rgb = jnp.where(visible[:, None], rgb, bg)
-    return _untile(rgb, hp, wp)[:h, :w]
+    rgb = jax.lax.map(shade_chunk, (d.reshape(-1, chunk, 3),
+                                    t.reshape(-1, chunk),
+                                    tri.reshape(-1, chunk)))
+    return rgb.reshape(-1, 3)[:n]

@@ -33,11 +33,11 @@ from vct_tpu.core import aniso as A
 from vct_tpu.core import camera as cameralib
 from vct_tpu.core import cones as C
 from vct_tpu.core import grid as G
-from vct_tpu.core import march as M
 from vct_tpu.render import shading
-from vct_tpu.render.gbuffer import (DeviceScene, GBuffer, pinhole_constants,
-                                    raycast, raycast_chunk,
-                                    raycast_chunk_pinhole)
+from vct_tpu.render.gbuffer import (DeviceScene, GBuffer,
+                                    intersect_chunk_pinhole,
+                                    hits_to_gbuffer, pinhole_constants,
+                                    raycast_chunk)
 from vct_tpu.render.voxelize import SurfaceSamples, generate_surface_samples, splat
 from vct_tpu.scene import textures as TX
 from vct_tpu.scene.mesh import Scene
@@ -153,8 +153,7 @@ def _radiance_mips(cfg: VCTConfig, lit: Array) -> Tuple[Array, ...]:
     cones need occupancy, not view-dependent radiance."""
     if cfg.grid.anisotropic:
         return A.build_aniso_mips(lit, cfg.grid.num_levels)
-    from vct_tpu.ops.mip_pallas import build_mips_auto
-    return build_mips_auto(lit, cfg.grid.num_levels)
+    return G.build_mips(lit, cfg.grid.num_levels)
 
 
 def light_direction(cfg: VCTConfig, dtype=jnp.float32) -> Array:
@@ -243,9 +242,7 @@ def build_voxel_state(
                   mode=cfg.voxelize.mode)
     # conservative (max-alpha) mips: shadow cones must not leak through
     # thin occluders diluted by mean-reduction (see grid.downsample2x)
-    from vct_tpu.ops.mip_pallas import build_mips_auto
-    unlit_mips = build_mips_auto(unlit, cfg.grid.num_levels,
-                                 alpha_mode="max")
+    unlit_mips = G.build_mips(unlit, cfg.grid.num_levels, alpha_mode="max")
 
     light_volume = None
     shadow_map = None
@@ -300,9 +297,8 @@ def build_voxel_state(
 
 
 # --- staged build: separately-jitted stages (VCTConfig is hashable, so it
-# rides as a static arg).  One monolithic jit of build_voxel_state makes XLA
-# optimize a 10k-op graph superlinearly (minutes); the stage split compiles
-# in seconds with identical results.  Use for interactive/bench paths; the
+# rides as a static arg).  Each stage compiles on its own, with results
+# identical to build_voxel_state.  Use for interactive/bench paths; the
 # single-function build_voxel_state remains for end-to-end autodiff.
 
 @partial(jax.jit, static_argnums=0)
@@ -312,8 +308,7 @@ def _stage_unlit(cfg: VCTConfig, samples: SamplesDevice,
     weights = jnp.ones(samples.positions.shape[0], albedo.dtype)
     unlit = splat(samples.positions, albedo[:, :3], weights,
                   cfg.grid.dim, cfg.grid.world_size, mode=cfg.voxelize.mode)
-    from vct_tpu.ops.mip_pallas import build_mips_auto
-    return build_mips_auto(unlit, cfg.grid.num_levels, alpha_mode="max")
+    return G.build_mips(unlit, cfg.grid.num_levels, alpha_mode="max")
 
 
 @partial(jax.jit, static_argnums=0, static_argnames=("mesh",))
@@ -490,9 +485,8 @@ def shade_gbuffer(
     return jnp.where(visible[..., None], rgb, bg)
 
 
-def alpha_mask_recast(cfg: VCTConfig, ds: DeviceScene, pc, origin0: Array,
-                      dc: Array, gbuf: GBuffer,
-                      mats: MaterialTable) -> GBuffer:
+def alpha_mask_recast(cfg: VCTConfig, mats: MaterialTable, gbuf_of, trace,
+                      t: Array, tri: Array) -> Tuple[Array, Array]:
     """Alpha-mask SEE-THROUGH (fs:169-172): the reference's `discard`
     drops the masked fragment so the depth-tested surface BEHIND it
     renders.  Re-cast rays whose hit sampled albedo-alpha below the
@@ -500,26 +494,26 @@ def alpha_mask_recast(cfg: VCTConfig, ds: DeviceScene, pc, origin0: Array,
     cfg.render.alpha_mask_depth times (deeper masked stacks fall back to
     the background, the documented bounded deviation).  Applies only when
     materials carry a texture atlas — the reference reads alpha from
-    DiffuseTexture (fs:167), so constant-albedo scenes never discard."""
-    depth = cfg.render.alpha_mask_depth
-    if depth <= 0 or mats.atlas is None:
-        return gbuf
-    thresh = cfg.render.alpha_threshold
-    neg = jnp.float32(-1.0)
-    for _ in range(depth):
-        alpha = mats.sample_albedo(gbuf.material, gbuf.uv)[..., 3]
-        masked = gbuf.hit & (alpha < thresh)
+    DiffuseTexture (fs:167), so constant-albedo scenes never discard.
+
+    t (N,) closest hits (+inf on a miss) and tri (N,) their triangles;
+    gbuf_of(t, tri) -> GBuffer of the same rays; trace(tmin) -> (t, tri)
+    with hits at t > tmin only (tmin = +inf retires a ray).  A re-cast
+    runs only when some ray is masked (lax.cond)."""
+    if cfg.render.alpha_mask_depth <= 0 or mats.atlas is None:
+        return t, tri
+    for _ in range(cfg.render.alpha_mask_depth):
+        g = gbuf_of(t, tri)
+        alpha = mats.sample_albedo(g.material, g.uv)[..., 3]
+        masked = g.hit & (alpha < cfg.render.alpha_threshold)
         # epsilon in both relative and absolute terms so the SAME surface
         # (t within float rounding) cannot re-win
-        tmin = jnp.where(masked, gbuf.t * (1.0 + 1e-5) + 1e-4, neg)
-        g2 = raycast_chunk_pinhole(ds, pc, origin0, dc, tmin=tmin)
-
-        def pick(a, b):
-            m = masked.reshape(masked.shape + (1,) * (a.ndim - 1))
-            return jnp.where(m, b, a)
-
-        gbuf = jax.tree_util.tree_map(pick, gbuf, g2)
-    return gbuf
+        tmin = jnp.where(masked, t * (1.0 + 1e-5) + 1e-4, jnp.inf)
+        t2, tri2 = jax.lax.cond(jnp.any(masked), trace,
+                                lambda _: (t, tri), tmin)
+        t = jnp.where(masked, t2, t)
+        tri = jnp.where(masked, tri2, tri)
+    return t, tri
 
 
 def render_rays(
@@ -555,10 +549,16 @@ def render_rays(
         pc = pinhole_constants(ds, origin0)
 
         def chunk_fn(dc):
-            gbuf = raycast_chunk_pinhole(ds, pc, origin0, dc)
-            gbuf = alpha_mask_recast(cfg, ds, pc, origin0, dc, gbuf, mats)
-            return shade_gbuffer(cfg, voxels, gbuf, mats, camera_position,
-                                 light_dir)
+            def gbuf_of(t, tri):
+                return hits_to_gbuffer(ds, pc, origin0, dc, t, tri)
+
+            t, tri = intersect_chunk_pinhole(dc, pc)
+            t, tri = alpha_mask_recast(
+                cfg, mats, gbuf_of,
+                lambda tmin: intersect_chunk_pinhole(dc, pc, tmin=tmin),
+                t, tri)
+            return shade_gbuffer(cfg, voxels, gbuf_of(t, tri), mats,
+                                 camera_position, light_dir)
 
         rgb = jax.lax.map(chunk_fn, d.reshape(-1, chunk_size, 3))
     else:
@@ -574,16 +574,6 @@ def render_rays(
     return rgb.reshape(-1, 3)[:n].reshape(shape + (3,))
 
 
-def use_fast_path(cfg: VCTConfig) -> bool:
-    """Should the camera pass run through render/fast.py (Pallas raycast +
-    tiled deferred-shading taps)? Requires the fast-path-supported config
-    subset, cfg.use_pallas, and a non-CPU backend (the Pallas kernels only
-    lower on TPU; the interpreter is for tests)."""
-    from vct_tpu.render import fast as F
-    return (cfg.use_pallas and F.supported(cfg)
-            and jax.default_backend() != "cpu")
-
-
 def render_camera_pass(
     cfg: VCTConfig,
     ds: DeviceScene,
@@ -593,23 +583,22 @@ def render_camera_pass(
     dirs: Array,
     camera_position: Array,
     light_dir: Optional[Array] = None,
-    frame_tables=None,
-    chunk_size: int = 16384,
+    chunk_size: Optional[int] = None,
 ) -> Array:
-    """The per-frame camera pass, routed through the fast Pallas path when
-    the config supports it (see use_fast_path), else render_rays.
-
-    frame_tables: pass fast.build_frame_tables(cfg, voxels, mats) to amortize
-    the mip/atlas packing across frames (the orbit loop does); None builds
-    them inline."""
-    if use_fast_path(cfg):
+    """The per-frame camera pass for the default backend: on a GPU the
+    binned Triton raycast + chunked XLA shading (render/fast.py); on the
+    CPU render_rays, the brute-force oracle the tests compare against.
+    chunk_size: pixels per shading chunk (None: the callee's default)."""
+    kw = {} if chunk_size is None else {"chunk_size": chunk_size}
+    backend = jax.default_backend()
+    if backend == "gpu":
         from vct_tpu.render import fast as F
-        if frame_tables is None:
-            frame_tables = F.build_frame_tables(cfg, voxels, mats)
-        return F.render_frame(cfg, ds, frame_tables, mats, origins, dirs,
-                              camera_position, light_dir)
-    return render_rays(cfg, ds, voxels, mats, origins, dirs,
-                       camera_position, light_dir, chunk_size=chunk_size)
+        return F.render_frame(cfg, ds, voxels, mats, origins, dirs,
+                              camera_position, light_dir, **kw)
+    if backend == "cpu":
+        return render_rays(cfg, ds, voxels, mats, origins, dirs,
+                           camera_position, light_dir, **kw)
+    raise NotImplementedError(f"no camera pass for backend {backend!r}")
 
 
 def render_image(
@@ -626,19 +615,10 @@ def render_image(
         camera, cfg.render.width, cfg.render.height)
     cam_pos = jnp.asarray(camera.position, jnp.float32)
 
-    # jit=False is the non-compiled debugging escape hatch; the fast path
-    # always compiles (its Pallas kernels have no eager form), so it only
-    # routes here when jit is on (ADVICE r2).
-    if jit and use_fast_path(cfg):
-        voxels = jax.jit(build_voxel_state, static_argnums=0)(
-            cfg, samples, mats)
-        img = render_camera_pass(cfg, ds, voxels, mats, origins, dirs,
-                                 cam_pos)
-        return np.asarray(img)
-
     def pipeline(origins, dirs, cam_pos, samples, mats):
         voxels = build_voxel_state(cfg, samples, mats)
-        return render_rays(cfg, ds, voxels, mats, origins, dirs, cam_pos)
+        return render_camera_pass(cfg, ds, voxels, mats, origins, dirs,
+                                  cam_pos)
 
     fn = jax.jit(pipeline) if jit else pipeline
     return np.asarray(fn(origins, dirs, cam_pos, samples, mats))

@@ -177,10 +177,9 @@ def shadow_volume_tap(cfg: VCTConfig, light_volume: Array, position: Array,
 def pack_light_corners(light_volume: Array) -> Array:
     """(D,D,D,1) -> (D^3, 8): each cell's 2x2x2 trilinear corner
     neighborhood (edge-replicated +1 shifts), so a trilinear tap becomes
-    ONE gather row + a weight dot.  XLA gathers are row-bound (~90M
-    rows/s on the v5e), so collapsing 8 corner gathers into 1 takes the
-    2.6M-sample radiance-injection shadow taps from ~150 ms to ~20 ms
-    (r4 build split).  Corner order: bit2=dx, bit1=dy, bit0=dz."""
+    ONE gather of a contiguous 8-value row + a weight dot instead of 8
+    scattered reads (the radiance injection taps every surface sample).
+    Corner order: bit2=dx, bit1=dy, bit0=dz."""
     v = light_volume[..., 0]
     corners = []
     for dx in (0, 1):

@@ -2,7 +2,7 @@
 
 Replaces the depth-only raster pass (Voxel_Cone_Tracing.h:80-105, K1 in
 SURVEY.md §2.2) with a deterministic scatter-min of surface samples into
-the light's ortho grid: no rasterizer exists on TPU, and the voxelization
+the light's ortho grid: the program has no rasterizer, and the voxelization
 stage already generates a dense surface sampling, so the same samples
 build the depth map.  Each sample splats a 3x3-texel footprint so the
 point sampling closes raster coverage holes (documented deviation — a

@@ -152,9 +152,8 @@ def splat(
     w = jnp.where(inside, weights, 0.0)
     n = dim ** 3
     c = values.shape[-1]
-    # one 1-D scatter per channel: XLA's multi-column scatter into a large
-    # (n, C) target compiles pathologically on TPU (>10 min at 256^3);
-    # C independent (n,) scatters compile in seconds and run equally fast
+    # one 1-D scatter per channel into an (n,) target; the channels are
+    # independent, so C scatters do the work of one (n, C) scatter
     if mode == "mean":
         wsum = jnp.zeros((n,), values.dtype).at[flat].add(w)
         cols = [jnp.zeros((n,), values.dtype).at[flat].add(w * values[:, j])

@@ -2,7 +2,7 @@
 
 Replaces the reference's GL texture units (Mesh.h:89-111 binds
 DiffuseTexture / SpecularTexture / HeightTexture / MaskTexture per mesh;
-Model.h:141-186 uploads stb_image data with mipmaps).  TPU-first design:
+Model.h:141-186 uploads stb_image data with mipmaps).  Design:
 
   * ONE atlas array per slot of shape (M, R, R, C) — every material's
     texture resampled to a common static resolution R.  Static shapes, and
